@@ -1,0 +1,69 @@
+"""The port stands alone: importing any of ``repro_torch`` loads neither
+``jax`` nor the JAX package ``repro``, no port source (nor the GPU smoke
+script) imports them, and the deployment's entry point runs on the GPU
+unless the caller asks for the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import api
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))",
+    re.MULTILINE)
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print(len(names), loaded)
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    count, loaded = proc.stdout.split(" ", 1)
+    assert int(count) >= 25
+    assert loaded.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_port_source_imports_jax_or_reference(path):
+    assert not FORBIDDEN.findall(path.read_text()), path
+
+
+def test_forbidden_pattern_catches_each_spelling():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.core import api", "import repro",
+                 "    from repro.kernels.quant_cast import ops"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import api",
+                 "import jaxtyping_free", "# import jax"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_default_deployment_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        api.default_deployment()
+    bd = api.default_deployment(device="cpu")
+    assert bd.device == torch.device("cpu")
+    assert {e.device for e in bd.engines.values()} == {torch.device("cpu")}
