@@ -24,7 +24,9 @@ without them.  It prints one JSON object per line:
              this main path (phases 3 and 4) above 0;
 5. kernels   each kernel's time (CUDA events over a CUDA graph of
              launches, L2 defeated by rotating buffers) beside its bound,
-             its plain version's time and its main-path launches;
+             its plain version's time, the time of the one PyTorch call
+             that computes the same function where there is one, and its
+             main-path launches;
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
@@ -329,15 +331,21 @@ def kernel_times(launches: dict, err: dict) -> None:
     # quantize: abs, max, divide, round, two clamps an element, and the
     # scale's compare and multiply a row; dequantize: convert, multiply
     q_ops, d_ops = 6 * n + 2 * nb, 2 * n
+    # one PyTorch call computes dequantize: int8 times f32 promotes to a
+    # single f32 multiply, bitwise equal to the plain version; no single
+    # call computes quantize's per-row absmax, scale and rounding
+    check(all(torch.equal(torch.mul(*p), ref.dequantize_blocks(*p))
+              for p in qs), "torch.mul(q, scale) differs from dequantize")
     rows = []
-    for name, kern, plain, nbytes, ops, line in (
+    for name, kern, plain, library, nbytes, ops, line in (
             ("quantize", [lambda x=x: k.quantize_2d(x) for x in xs],
-             [lambda x=x: ref.quantize_blocks(x) for x in xs], q_bytes,
-             q_ops, 21),
+             [lambda x=x: ref.quantize_blocks(x) for x in xs], None,
+             q_bytes, q_ops, 21),
             ("dequantize", [lambda p=p: k.dequantize_2d(*p) for p in qs],
-             [lambda p=p: ref.dequantize_blocks(*p) for p in qs], d_bytes,
-             d_ops, 30)):
+             [lambda p=p: ref.dequantize_blocks(*p) for p in qs],
+             [lambda p=p: torch.mul(*p) for p in qs], d_bytes, d_ops, 30)):
         ms, plain_ms = _graph_ms(kern), _graph_ms(plain)
+        library_ms = None if library is None else _graph_ms(library)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         rows.append({
@@ -348,8 +356,7 @@ def kernel_times(launches: dict, err: dict) -> None:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # no single PyTorch call computes this function
-            "library_ms": None,
+            "library_ms": library_ms,
             "shape": [nb, k.BLOCK], "bytes": nbytes, "operations": ops})
     emit({"kernels": rows})
 

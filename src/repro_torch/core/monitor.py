@@ -14,7 +14,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import threading
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.signatures import Signature
@@ -47,48 +46,6 @@ class Monitor:
         self._versions: Dict[str, int] = {}
         self.engine_ewma: Dict[str, float] = {}
         self.engine_ops: Dict[str, int] = {}
-        # per-continuous-query tick health (repro.stream.continuous)
-        self.stream_ewma: Dict[str, float] = {}
-        self.stream_stats: Dict[str, Dict[str, int]] = {}
-        # latest per-shard ingest/drop snapshot of each sharded stream
-        # (StreamRuntime.tick feeds this; the admin rebalance hook reads
-        # it to spot lopsided placements)
-        self.shard_stats: Dict[str, Dict[int, Dict[str, float]]] = {}
-        # per-tick EWMA of each shard's ingest load (appended + 2x
-        # dropped *deltas* between snapshots): the rebalance signal
-        # tracks *current* load, so late-onset skew on a long-balanced
-        # stream surfaces within a few ticks and a donor engine stops
-        # being charged for historical ingest after a move
-        self.shard_ewma: Dict[str, Dict[int, float]] = {}
-        self._shard_prev: Dict[str, Dict[int, Tuple[float, float]]] = {}
-        # per-stream event-time health: low watermark + late/pending
-        # counters (StreamRuntime.tick feeds this for ts streams)
-        self.stream_watermarks: Dict[str, Dict[str, Any]] = {}
-        # per-stream multi-producer ingest health: open/peak producer
-        # handles, seq blocks reserved, rows in flight, ordered-commit
-        # waits (StreamRuntime.tick feeds this from
-        # stream.ingest_concurrency(); admin.status()["streams"] shows it)
-        self.ingest_stats: Dict[str, Dict[str, int]] = {}
-        # compiled-query-path health: the stream/compile stats() block
-        # (backend, compiles, cache hits, fallbacks + reasons).  One
-        # process-wide dict, not per-stream — the jit plan cache is keyed
-        # by stream identity internally but its counters are global.
-        self.jit_stats: Dict[str, Any] = {}
-        # per-stream durability health: segment-log/checkpoint counters
-        # (StreamRuntime.tick feeds this from StreamDurability.stats())
-        # and the last recover_stream outcome
-        self.durability_stats: Dict[str, Dict[str, Any]] = {}
-        self.recoveries: Dict[str, Dict[str, Any]] = {}
-        # serving front-door health (repro.serve.frontdoor feeds this:
-        # tenants, subscriptions, shared queries, admission rejects,
-        # delivered/dropped results, replica counts)
-        self.serve_stats: Dict[str, Any] = {}
-        # ml-island inference health: the repro.stream.ml.stats() block
-        # (models loaded, waves, windows scored, params-cache hits,
-        # fallbacks).  Process-wide like the jit stats — the model/param
-        # caches are keyed per arch internally but the counters are
-        # global.
-        self.ml_stats: Dict[str, Any] = {}
 
     # -- benchmark API (paper naming) ----------------------------------------
     def add_benchmarks(self, signature: Signature, lean: bool,
@@ -213,233 +170,6 @@ class Monitor:
                           "island sub-query latency",
                           engine=engine_name).observe(seconds)
 
-    # -- continuous-query health (streaming island) ---------------------------
-    def observe_stream(self, name: str, latency_seconds: float,
-                       dropped: int = 0, lagging: bool = False,
-                       late: int = 0) -> None:
-        """Record one standing-query tick: execution latency EWMA plus
-        cumulative drop/late/backpressure counters (repro.stream feeds
-        this)."""
-        with self._lock:
-            prev = self.stream_ewma.get(name)
-            self.stream_ewma[name] = (
-                latency_seconds if prev is None
-                else self.EWMA_ALPHA * latency_seconds
-                + (1 - self.EWMA_ALPHA) * prev)
-            stats = self.stream_stats.setdefault(
-                name, {"ticks": 0, "dropped": 0, "backpressure": 0,
-                       "late": 0})
-            stats["ticks"] += 1
-            stats["dropped"] += int(dropped)
-            stats["backpressure"] += int(bool(lagging))
-            stats["late"] += int(late)
-            stats_now = dict(stats)
-        metrics.histogram("repro_stream_query_seconds",
-                          "standing-query tick latency",
-                          query=name).observe(latency_seconds)
-        for key, mname in (("ticks", "repro_stream_query_ticks_total"),
-                           ("dropped", "repro_stream_query_drops_total"),
-                           ("backpressure",
-                            "repro_stream_query_backpressure_total"),
-                           ("late", "repro_stream_query_late_total")):
-            metrics.counter(mname, f"standing-query cumulative {key}",
-                            query=name).set_total(stats_now[key])
-
-    def observe_watermark(self, stream_name: str, watermark: float,
-                          late: int = 0, pending: int = 0) -> None:
-        """Record an event-time stream's low watermark (min across
-        shards for key-hashed sharded streams) plus its late-row and
-        insertion-buffer counters.  JSON-safe: a watermark that has not
-        started is stored as None."""
-        with self._lock:
-            self.stream_watermarks[stream_name] = {
-                "watermark": (None if watermark == float("-inf")
-                              else float(watermark)),
-                "late": int(late), "pending": int(pending)}
-        if watermark != float("-inf"):
-            metrics.gauge("repro_stream_watermark",
-                          "event-time low watermark",
-                          stream=stream_name).set(float(watermark))
-        metrics.counter("repro_stream_late_rows_dropped_total",
-                        "rows arrived below the watermark (dropped)",
-                        stream=stream_name).set_total(int(late))
-        metrics.gauge("repro_stream_pending_rows",
-                      "insertion-buffer rows above the watermark",
-                      stream=stream_name).set(int(pending))
-
-    def observe_serve(self, stats: Dict[str, Any]) -> None:
-        """Record the serving front door's health block (one per
-        process — the front door is a singleton tier over the
-        deployment, like the jit stats)."""
-        with self._lock:
-            self.serve_stats = dict(stats)
-        for key in ("tenants", "subscriptions", "shared_queries",
-                    "replicas"):
-            if key in stats:
-                metrics.gauge(f"repro_serve_{key}",
-                              f"serving front door: {key}").set(
-                    stats[key])
-        for key in ("admission_rejects", "results_delivered",
-                    "results_dropped"):
-            if key in stats:
-                metrics.counter(
-                    f"repro_serve_{key}_total",
-                    f"serving front door: {key}").set_total(stats[key])
-
-    def observe_ingest(self, stream_name: str,
-                       stats: Dict[str, int]) -> None:
-        """Record a stream's multi-producer ingest counters (the
-        ``ingest_concurrency()`` block: producers open/peak, blocks and
-        rows reserved, in-flight rows, ordered-commit waits)."""
-        with self._lock:
-            self.ingest_stats[stream_name] = dict(stats)
-        for key, kind in (("producers_open", "gauge"),
-                          ("in_flight_rows", "gauge"),
-                          ("blocks_reserved", "counter"),
-                          ("rows_reserved", "counter"),
-                          ("commit_waits", "counter"),
-                          ("commit_steals", "counter")):
-            if key not in stats:
-                continue
-            name = f"repro_stream_ingest_{key}" + (
-                "_total" if kind == "counter" else "")
-            if kind == "gauge":
-                metrics.gauge(name, f"multi-producer ingest {key}",
-                              stream=stream_name).set(stats[key])
-            else:
-                metrics.counter(name, f"multi-producer ingest {key}",
-                                stream=stream_name).set_total(stats[key])
-
-    def observe_jit(self, stats: Dict[str, Any]) -> None:
-        """Record the compiled standing-query path's counters (the
-        ``repro.stream.compile.stats()`` block: active backend, plan
-        compiles/cache hits/executions, interpreter fallbacks and their
-        reasons).  StreamRuntime.tick feeds this once per tick;
-        admin.status()["streams"]["query_backend"] shows it."""
-        with self._lock:
-            self.jit_stats = dict(stats)
-
-    def observe_ml(self, stats: Dict[str, Any]) -> None:
-        """Record the ml island's inference counters (the
-        ``repro.stream.ml.stats()`` block: models loaded, waves,
-        standing infer executions, windows scored, params-cache
-        hits/misses, jax-absent fallbacks).  StreamRuntime.tick feeds
-        this once per tick next to the jit stats;
-        admin.status()["ml"] shows it."""
-        with self._lock:
-            self.ml_stats = dict(stats)
-
-    def observe_durability(self, stream_name: str,
-                           stats: Dict[str, Any]) -> None:
-        """Record a durable stream's segment-log/checkpoint counters
-        (the ``StreamDurability.stats()`` block).  StreamRuntime.tick
-        feeds this; admin.status()["streams"]["durability"] shows it."""
-        with self._lock:
-            self.durability_stats[stream_name] = dict(stats)
-        metrics.gauge("repro_stream_log_bytes",
-                      "segment-log bytes on disk",
-                      stream=stream_name).set(stats.get("log_bytes", 0))
-        metrics.gauge("repro_stream_log_segments",
-                      "segment files in the wal",
-                      stream=stream_name).set(stats.get("segments", 0))
-
-    def observe_recovery(self, stream_name: str, rows: int,
-                         seconds: float) -> None:
-        """Record a recover_stream outcome (rows replayed from the
-        segment log and the wall-clock rebuild time)."""
-        with self._lock:
-            self.recoveries[stream_name] = {
-                "rows_replayed": int(rows), "seconds": float(seconds)}
-
-    @staticmethod
-    def shard_load(stats: Dict[str, float]) -> float:
-        """One shard's *lifetime* ingest load: appended rows, weighted up
-        by drops (a dropping shard is oversubscribed even at a middling
-        rate).  The seed/fallback for the per-tick EWMA below — current
-        load decisions go through ``shard_loads``."""
-        return (float(stats.get("appended", 0))
-                + 2.0 * float(stats.get("dropped", 0)))
-
-    def observe_shards(self, stream_name: str,
-                       shard_stats: Dict[int, Dict[str, float]]) -> None:
-        """Record the latest per-shard ingest/drop snapshot of a sharded
-        stream (appended/dropped/rows/engine per shard) and fold the
-        per-tick load *delta* into each shard's EWMA.  The first snapshot
-        seeds the EWMA with the lifetime load; from then on only new
-        ingest moves it, so a shard that goes quiet decays toward zero
-        within a few ticks instead of carrying its history forever."""
-        with self._lock:
-            snap = {int(i): dict(st) for i, st in shard_stats.items()}
-            prev = self._shard_prev.get(stream_name, {})
-            ewma = self.shard_ewma.setdefault(stream_name, {})
-            for i, st in snap.items():
-                appended = float(st.get("appended", 0))
-                dropped = float(st.get("dropped", 0))
-                pa, pd = prev.get(i, (0.0, 0.0))
-                # max() guards counter resets (a shard recreated fresh)
-                delta = (max(0.0, appended - pa)
-                         + 2.0 * max(0.0, dropped - pd))
-                old = ewma.get(i)
-                ewma[i] = (delta if old is None
-                           else self.EWMA_ALPHA * delta
-                           + (1 - self.EWMA_ALPHA) * old)
-            self._shard_prev[stream_name] = {
-                i: (float(st.get("appended", 0)),
-                    float(st.get("dropped", 0)))
-                for i, st in snap.items()}
-            self.shard_stats[stream_name] = snap
-            ewma_now = dict(ewma)
-        for i, st in snap.items():
-            metrics.counter("repro_stream_shard_appended_total",
-                            "rows appended per shard",
-                            stream=stream_name, shard=i
-                            ).set_total(float(st.get("appended", 0)))
-            metrics.counter("repro_stream_shard_dropped_total",
-                            "rows overwritten per shard",
-                            stream=stream_name, shard=i
-                            ).set_total(float(st.get("dropped", 0)))
-            metrics.gauge("repro_stream_shard_load_ewma",
-                          "per-tick shard ingest-load EWMA",
-                          stream=stream_name, shard=i
-                          ).set(ewma_now.get(i, 0.0))
-
-    def shard_loads(self, stream_name: str) -> Dict[int, float]:
-        """Current per-shard ingest loads: the per-tick EWMA when
-        observations exist, else the lifetime counters of the latest
-        snapshot.  Shared by lopsided_shards and StreamRuntime.rebalance
-        so the detector and the mover can never disagree."""
-        with self._lock:
-            ewma = self.shard_ewma.get(stream_name)
-            if ewma:
-                return dict(ewma)
-            stats = self.shard_stats.get(stream_name, {})
-            return {i: self.shard_load(st) for i, st in stats.items()}
-
-    def lopsided_shards(self, stream_name: str, factor: float = 3.0
-                        ) -> List[int]:
-        """Shards of ``stream_name`` whose *current* ingest load (per-
-        tick EWMA of appended rows, weighted up by drops — a shard that
-        drops is oversubscribed even if its raw rate is middling)
-        exceeds ``factor`` x the median shard's.  Empty when the stream
-        is unknown or balanced.  EWMA, not lifetime counters: late-onset
-        skew on a long-balanced stream is flagged within a few ticks."""
-        with self._lock:
-            stats = self.shard_stats.get(stream_name)
-            if not stats or len(stats) < 2:
-                return []
-            loads = self.shard_loads(stream_name)
-            vals = sorted(loads.values())
-            # lower median: with the upper one, skew becomes invisible
-            # whenever half or more of the shards are hot (a 2-shard
-            # stream could never trigger the rebalance hook)
-            median = vals[(len(vals) - 1) // 2]
-            if median <= 0:
-                # all load on some shards, none on the median: any shard
-                # carrying rows while the median is idle is lopsided
-                return sorted(i for i, v in loads.items() if v > 0)
-            return sorted(i for i, v in loads.items()
-                          if v > factor * median)
-
     def stragglers(self, factor: float = 3.0) -> List[str]:
         """Engines whose EWMA latency exceeds ``factor`` x fleet median."""
         with self._lock:
@@ -456,32 +186,13 @@ class Monitor:
     def snapshot(self) -> Dict[str, Any]:
         """Deep-copied view of every health dict, taken under the
         Monitor lock.  The one sanctioned way to *read* this state from
-        another thread: ``admin.status()`` renders it while the
-        background MonitoringTask / StreamRuntime tick keep mutating
-        the live dicts (iterating those directly races)."""
+        another thread while the background MonitoringTask and the
+        Executor keep mutating the live dicts (iterating those directly
+        races).  The streaming island's observers come with its port."""
         with self._lock:
             return {
                 "engine_ewma": dict(self.engine_ewma),
                 "engine_ops": dict(self.engine_ops),
-                "stream_ewma": dict(self.stream_ewma),
-                "stream_stats": {k: dict(v)
-                                 for k, v in self.stream_stats.items()},
-                "stream_watermarks": {
-                    k: dict(v)
-                    for k, v in self.stream_watermarks.items()},
-                "ingest_stats": {k: dict(v)
-                                 for k, v in self.ingest_stats.items()},
-                "jit_stats": dict(self.jit_stats),
-                "ml_stats": dict(self.ml_stats),
-                "durability_stats": {
-                    k: dict(v)
-                    for k, v in self.durability_stats.items()},
-                "serve_stats": dict(self.serve_stats),
-                "recoveries": {k: dict(v)
-                               for k, v in self.recoveries.items()},
-                "shard_stats": {
-                    name: {i: dict(st) for i, st in shards.items()}
-                    for name, shards in self.shard_stats.items()},
                 "stragglers": self.stragglers(),
             }
 

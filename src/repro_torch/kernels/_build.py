@@ -2,8 +2,9 @@
 plain C interface, loaded with ``ctypes``.
 
 A library is built at first use, from the sources in the repository only,
-into ``build/repro_torch/`` at the repository root, under a name keyed by
-a hash of its sources and flags, so an edited source is rebuilt and an
+into ``build/repro_torch/`` at the root of the checkout (see
+``_build_dir`` for an installed package), under a name keyed by a hash
+of its sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Builds are serialised by a lock: the Executor
 runs casts on a thread pool, and two first calls may race.
 """
@@ -19,7 +20,22 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+def _build_dir() -> Path:
+    """``$REPRO_TORCH_BUILD_DIR`` if set; else ``build/repro_torch/`` at
+    the root of the checkout this file lies in (``src/repro_torch/``);
+    else, for an installed package, a per-user cache directory."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    pkg = Path(__file__).resolve().parents[1]
+    if pkg.parent.name == "src":
+        return pkg.parents[1] / "build" / "repro_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -35,8 +35,11 @@ def quantize(x: torch.Tensor, block: int = k.BLOCK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Any-shape tensor -> (q int8 (nb, BLOCK), scale f32 (nb, 1)).
 
-    ``block`` is fixed to the kernel's row width (128); the argument is
-    kept for MigrationParams.quant_block, as in the reference."""
+    ``block`` must be the kernel's row width (128); the argument is kept
+    for MigrationParams.quant_block, as in the reference."""
+    if block != k.BLOCK:
+        raise ValueError(f"quant_cast pages are {k.BLOCK} wide; "
+                         f"block={block} is not supported")
     x2d = _pad_to_tiles(x.to(torch.float32).reshape(-1))
     if _route(x2d) == "cuda":
         return k.quantize_2d(x2d)

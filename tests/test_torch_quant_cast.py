@@ -3,6 +3,8 @@ numpy-seeded inputs: q codes and scales bitwise, including padding, zero
 blocks, rows of widely varying scale, and int8 pages carried across in
 both directions.  The CUDA kernel itself is checked against the plain
 version on the card in ``test_torch_cuda.py``."""
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,3 +143,16 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
         _build.load_library("quant_cast", k.SOURCES)
     assert list((tmp_path / "build").iterdir()) == []
 
+
+@pytest.mark.parametrize("block", [64, 256])
+def test_quantize_rejects_other_block_widths(block):
+    with pytest.raises(ValueError, match="128 wide"):
+        ops.quantize(torch.zeros(256), block=block)
+
+
+def test_build_dir_follows_env_then_checkout(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert _build._build_dir() == tmp_path / "b"
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR")
+    root = pathlib.Path(_build.__file__).resolve().parents[3]
+    assert _build._build_dir() == root / "build" / "repro_torch"
