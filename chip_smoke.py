@@ -7,10 +7,16 @@ proof that the port builds, is right and runs its main path on the card.
 Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them.  It prints one JSON object per line:
 
-1. build     builds the CUDA kernels from the sources in the checkout;
+1. build     builds the CUDA kernels from the sources in the checkout,
+             one nvcc for each library, all started together;
 2. parity    holds each kernel against its plain PyTorch version on the
-             card, bitwise, on small shapes, an all-zero block, a row
-             holding a NaN and the main path's shapes;
+             card, bitwise: quant_cast on small shapes, an all-zero
+             block, a row holding a NaN and the main path's shapes; the
+             streaming kernels on rows holding a NaN or both signed
+             zeros, W = 1, 7, 13 and 1024, sizes 1, 8,191 and 450,000, a
+             row off the 16-byte grid, join keys tied at both edges of
+             their band, 1 and 2 right keys, left counts that fill no
+             whole block, and the main path's shapes;
 3. query     drives the query endpoint at the size of a real deployment
              (MIMIC II v2.6's ~32,500 subjects, 70 min of an 8-lead
              waveform at 125 Hz): the paper's §VI queries through
@@ -22,20 +28,46 @@ without them.  It prints one JSON object per line:
              the TensorPolystore; round-trip errors held to the bound of
              tests/test_polystore.py, and every kernel's launch count on
              this main path (phases 3 and 4) above 0;
-5. kernels   each kernel's time (CUDA events over a CUDA graph of
+5. stream    the streaming island at the size of a real ICU feed, under
+             the compiled backend (REPRO_QUERY_BACKEND=jit): a MIMIC II
+             waveform at 125 Hz into a 1,048,576-row ring (160 one-minute
+             batches, so the ring wraps) under four standing queries (a
+             one-hour rolling max and a one-minute rolling min through
+             window_minmax, the example's cast-and-average, a sliding
+             window); a jittered ABP/ECG pair of event-time streams under
+             a standing one-hour interval join (join_bounds over 450,000
+             x 450,000 keys); and the example's sharded feed (4 shards
+             over 2 StreamEngines, a live rebalance mid-feed).  Every
+             standing query's last result is held bitwise against the
+             interpreter on the same state and against numpy over the
+             generator's rows, the sharded feed tick by tick against the
+             unsharded one; every error a standing query records is a
+             window not complete yet, and there are as many as the feed
+             predicts; no fallback, and both streaming kernels'
+             launch counts on this path above 0.  It prints each feed's
+             wall time, each standing query's p50 tick latency, the ring
+             export's share of the join's ticks (host, from the trace
+             spans) and one join's card time by kernel and copy
+             (torch.profiler);
+6. kernels   each kernel's time (CUDA events over a CUDA graph of
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
-             main-path launches;
+             launches on its path (phases 3-4 for quant_cast, phase 5 for
+             the streaming kernels); for join_bounds also the time its
+             chains of dependent loads set, from a lone key's levels;
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
 """
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,7 +78,46 @@ MAIN_PATH = dict(num_patients=32768, num_orders=1048576, wave_len=524288,
 KV_LAYERS, KV_LEAF = 28, (8, 4096, 2, 128)     # configs/qwen2_1_5b.py cache
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                          # f32 outside the tensor cores
+F64_OPS_PER_S = 34e12                          # f64 outside the tensor cores
 REPLACES = "src/repro/kernels/quant_cast/quant_cast.py"
+STREAM_REPLACES = "src/repro/stream/kernels.py"
+
+# the streaming island at the size of a real ICU feed: MIMIC II waveforms
+# at 125 Hz, one-minute batches (7,500 rows), a 2.3-hour ring
+WAVE = "mimic2v26.waveform_stream"
+WAVE_FEED = dict(batch_rows=7500, num_batches=160, capacity=1048576,
+                 seed=SEED)
+PAIRED_FEED = dict(batch_rows=7500, num_batches=160, capacity=1048576,
+                   shards=1, jitter=2.0, max_delay=6.0, seed=SEED)
+SHARDED_BATCHES = 60
+HOUR, MINUTE = 450000, 7500                    # rows at 125 Hz
+WAVE_QUERIES = {                               # name: (bql, every_n_ticks)
+    "hr_max_1h": (f"bdstream(aggregate(window({WAVE}, {HOUR}), max(hr)))",
+                  1),
+    "signal_min_1m": (f"bdstream(aggregate(window({WAVE}, {MINUTE}),"
+                      " min(signal)))", 1),
+    "wave_avg": (f"bdarray(aggregate(bdcast(bdstream(window({WAVE},"
+                 f" {MINUTE})), w_arr, '<signal:double>[tick=0:"
+                 f"{MINUTE - 1},{MINUTE},0]', array), avg(signal)))", 1),
+    "sliding_30s": (f"bdstream(window({WAVE}, {MINUTE}, {MINUTE // 2}))",
+                    20),
+}
+JOIN = (f"bdstream(join(ewindow(mimic2v26.abp_stream, {HOUR}),"
+        f" ewindow(mimic2v26.ecg_stream, {HOUR}), on=ts, tol=0.5))")
+JOIN_EVERY = 4
+ROLLING_AVG = f"bdstream(aggregate(window({WAVE}, {MINUTE}), avg(signal)))"
+# the ticks on which a standing query records an error: those before its
+# first complete window (the one-hour max needs 60 one-minute batches;
+# the join's first hour closes once batch 61 moves the watermark past
+# it, so its due ticks 4, 8, ..., 60 find none); every other query has
+# a complete window from its first run
+WANT_ERRORS = {"hr_max_1h": HOUR // MINUTE - 1,
+               "abp_ecg_join": HOUR // MINUTE // JOIN_EVERY}
+# the only error a standing query may record here: the Executor's wrap of
+# a StreamException that says no window is complete yet
+NOT_YET = re.compile(r"LocalQueryExecutionException: streaming query "
+                     r"failed on \S+: '.*': stream '[^']+': (no complete "
+                     r"window|no closed ewindow|watermark has not started)")
 
 
 def emit(obj) -> None:
@@ -75,13 +146,18 @@ def _inputs(shape, seed: int) -> np.ndarray:
 def build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.quant_cast import quant_cast as k
+    from repro_torch.kernels.stream import stream as sk
     t0 = time.perf_counter()
-    k.load()
-    ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get("quant_cast",
-                                                        "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "library": "quant_cast",
-          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for lib in [pool.submit(k.load), pool.submit(sk.load)]:
+            lib.result()
+    seconds = time.perf_counter() - t0
+    for name in ("quant_cast", "stream"):
+        ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(name,
+                                                            "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "library": name, "seconds": seconds,
+              "ptxas": ptxas})
 
 
 # -- 2. kernel against its plain version ---------------------------------------
@@ -129,6 +205,91 @@ def parity() -> dict:
           "NaN row disturbed the other rows")
     emit({"phase": "parity", "case": "nan_row", "scale": float(s[2, 0]),
           "plain_scale": float(sr[2, 0]), "other_rows_bitwise": True})
+    return err
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal float64 bit patterns (the sign of a zero included); any NaN
+    equals any NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int64),
+                            b[~nan].view(torch.int64)))
+
+
+def _minmax_rows(w: int, size: int, seed: int) -> np.ndarray:
+    """Normal rows; the second holds a NaN, the third mixed signed zeros
+    below negatives, the fourth only -0.0, the fifth a -0.0 and a +0.0
+    above positives (where the shape has those rows)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((w, size))
+    if w > 1:
+        x[1, size // 2] = np.nan
+    if w > 2:
+        x[2] = -np.abs(x[2])
+        x[2, ::2], x[2, 1::2] = 0.0, -0.0
+    if w > 3:
+        x[3] = -0.0
+    if w > 4 and size > 1:
+        x[4] = np.abs(x[4])
+        x[4, 0], x[4, -1] = -0.0, 0.0
+    return x
+
+
+def _join_keys(nl: int, nr: int, seed: int, tol: float):
+    """Sorted right keys with duplicates; left keys that tie a right key
+    at both edges of their [lt - tol, lt + tol] band."""
+    rng = np.random.default_rng(seed)
+    rs = np.sort(rng.integers(0, max(nr // 2, 4), nr) * 0.25)
+    lt = rng.uniform(rs[0] - 1.0, rs[-1] + 1.0, nl)
+    edge = rs[rng.integers(0, nr, nl)]
+    lt[::3] = edge[::3] + tol
+    lt[1::3] = edge[1::3] - tol
+    return lt, rs
+
+
+def stream_parity() -> dict:
+    from repro_torch.kernels.stream import ops, ref
+    from repro_torch.kernels.stream import stream as sk
+    err = {"window_minmax": 0.0, "join_bounds": 0.0}
+    shapes = [(w, size) for w in (1, 7, 13) for size in (1, 8191, HOUR)]
+    shapes.append((1024, MINUTE))              # one-minute windows, batched
+    for i, (w, size) in enumerate(shapes):
+        x = torch.from_numpy(_minmax_rows(w, size, 20 + i)).cuda()
+        # the last row again, 8 bytes off the 16-byte grid
+        buf = torch.empty(size + 1, dtype=torch.float64, device="cuda")
+        buf[1:] = x[-1]
+        for name, rows in (("", x), ("_unaligned", buf[1:].view(1, size))):
+            for is_max in (False, True):
+                got = sk.window_minmax_2d(rows, is_max)
+                want = ref.window_minmax(rows, is_max)
+                torch.cuda.synchronize()
+                check(_same_bits(got, want), f"window_minmax differs from "
+                      f"the plain version at {(w, size)}{name} "
+                      f"is_max={is_max}")
+                fin = torch.isfinite(want)
+                err["window_minmax"] = max(err["window_minmax"], float(
+                    (got[fin] - want[fin]).abs().max()) if fin.any()
+                    else 0.0)
+        emit({"phase": "parity", "kernel": "window_minmax",
+              "case": [w, size], "bitwise": True})
+    tol = 0.5
+    cases = [(1, 1), (7, 1), (1001, 1), (1001, 2), (4097, 33),
+             (HOUR, HOUR), (524288, 524288)]
+    for i, (nl, nr) in enumerate(cases):
+        lt, rs = _join_keys(nl, nr, 40 + i, tol)
+        lt_d, rs_d = torch.from_numpy(lt).cuda(), torch.from_numpy(rs).cuda()
+        lo, hi = sk.join_bounds_1d(lt_d, rs_d, tol, ops.steps(nr))
+        want_lo, want_hi = ref.join_bounds(lt_d, rs_d, tol)
+        torch.cuda.synchronize()
+        check(torch.equal(lo, want_lo) and torch.equal(hi, want_hi),
+              f"join_bounds differs from the plain version at {(nl, nr)}")
+        check(np.array_equal(lo.cpu().numpy(), np.searchsorted(
+            rs, lt - tol, side="left")), f"join_bounds lo at {(nl, nr)}")
+        err["join_bounds"] = max(err["join_bounds"], float(
+            (lo - want_lo).abs().max()), float((hi - want_hi).abs().max()))
+        emit({"phase": "parity", "kernel": "join_bounds", "case": [nl, nr],
+              "bitwise": True})
     return err
 
 
@@ -286,7 +447,287 @@ def quant_checks(bd, kv) -> None:
           "waveform_bound": bound, "kv_worst_err_over_bound": worst})
 
 
-# -- 5. kernel times --------------------------------------------------------------
+# -- 5. the streaming island at the size of an ICU feed ---------------------------
+def _set_backend(name: str) -> None:
+    from repro_torch.stream import compile as qc
+    os.environ[qc.BACKEND_ENV] = name
+
+
+def _waveform_rows(batch_rows: int, num_batches: int, seed: int):
+    """The rows ``stream_mimic_waveforms`` appends, drawn again with numpy
+    (the same generator calls in the same order)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(batch_rows * num_batches, dtype=np.float64)
+    signal, hr = np.empty_like(t), np.empty_like(t)
+    for b in range(num_batches):
+        sl = slice(b * batch_rows, (b + 1) * batch_rows)
+        signal[sl] = (np.sin(2 * np.pi * t[sl] / 360.0)
+                      + 0.05 * rng.standard_normal(batch_rows))
+        hr[sl] = (75.0 + 10.0 * np.sin(2 * np.pi * t[sl] / 3600.0)
+                  + rng.standard_normal(batch_rows))
+    return signal, hr
+
+
+def _paired_rows(batch_rows: int, num_batches: int, seed: int,
+                 jitter: float):
+    """ABP and ECG by timestamp, as ``stream_mimic_paired_waveforms``
+    draws them (arrival order undone: ts t holds row t)."""
+    rng = np.random.default_rng(seed)
+    n = batch_rows * num_batches
+    abp, ecg = np.empty(n), np.empty(n)
+    for b in range(num_batches):
+        t = b * batch_rows + np.arange(batch_rows, dtype=np.float64)
+        rng.uniform(-jitter, jitter, batch_rows)          # ABP arrival order
+        abp[b * batch_rows:(b + 1) * batch_rows] = (
+            90.0 + 12.0 * np.sin(2 * np.pi * t / 360.0)
+            + 0.5 * rng.standard_normal(batch_rows))
+        rng.uniform(-jitter, jitter, batch_rows)          # ECG arrival order
+        ecg[b * batch_rows:(b + 1) * batch_rows] = (
+            np.sin(2 * np.pi * t / 6.0)
+            + 0.1 * rng.standard_normal(batch_rows))
+    return abp, ecg
+
+
+def _same_value(a, b) -> bool:
+    """Two query results equal bit for bit (NaN equal to NaN)."""
+    from repro_torch.core.interop import to_numpy
+    a, b = to_numpy(a), to_numpy(b)
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and np.array_equal(
+                    np.ascontiguousarray(a).view(np.uint8),
+                    np.ascontiguousarray(b).view(np.uint8)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same_value(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_value, a, b))
+    return a == b
+
+
+def _feed(feed, cqs: dict) -> None:
+    """Run ``feed`` to its end, holding every error a standing query of
+    ``cqs`` records to NOT_YET, before its first execution, and their
+    number to WANT_ERRORS: a kernel that fails on a tick fails here."""
+    seen = dict.fromkeys(cqs, 0)
+    for info in feed:
+        for name, cq in cqs.items():
+            if cq.errors != seen[name]:
+                check(cq.errors == seen[name] + 1 and cq.executions == 0
+                      and NOT_YET.match(cq.last_error or "") is not None,
+                      f"{name}, batch {info['batch']}: {cq.errors} errors "
+                      f"after {cq.executions} runs: {cq.last_error}")
+                seen[name] = cq.errors
+    for name, cq in cqs.items():
+        want = WANT_ERRORS.get(name, 0)
+        check(cq.errors == want,
+              f"{name}: {cq.errors} errors, expected {want}")
+
+
+def _ran(bd, info) -> list:
+    return [(n, bd.streams.queries[n].last_value) for n, _ in info["ran"]]
+
+
+def waveform_feed(bd) -> None:
+    """Four standing queries over a 2.3-hour ring, fed 160 one-minute
+    batches; then each last result against the interpreter and numpy."""
+    from repro_torch.core.interop import to_numpy
+    from repro_torch.data.mimic import stream_mimic_waveforms
+    cqs = {name: bd.register_continuous(q, every, name=name)
+           for name, (q, every) in WAVE_QUERIES.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _feed(stream_mimic_waveforms(bd, **WAVE_FEED), cqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stream = bd.engines["streamstore0"].get(WAVE)
+    emit({"phase": "stream", "feed": "waveform", "wall_s": wall,
+          "ticks": WAVE_FEED["num_batches"], "rows": stream.total_appended,
+          "dropped": stream.total_dropped,
+          "queries": {n: cq.metrics() for n, cq in cqs.items()}})
+    check(stream.total_dropped > 0, "the waveform ring did not wrap")
+    _set_backend("interpreter")
+    for name, cq in cqs.items():
+        want = bd.query(cq.bql).value
+        check(_same_value(want, cq.last_value),
+              f"{name}: the compiled result differs from the interpreter")
+        bd.streams.deregister(name)
+    _set_backend("jit")
+    signal, hr = _waveform_rows(WAVE_FEED["batch_rows"],
+                                WAVE_FEED["num_batches"], WAVE_FEED["seed"])
+    total = signal.shape[0]
+    s_hour = (total // HOUR - 1) * HOUR
+    s_min = (total // MINUTE - 1) * MINUTE
+    got = {n: to_numpy(cq.last_value) for n, cq in cqs.items()}
+    check(got["hr_max_1h"]["attrs"]["max_hr"][0]
+          == np.float32(hr[s_hour:s_hour + HOUR].max()), "hr_max_1h value")
+    check(got["signal_min_1m"]["attrs"]["min_signal"][0]
+          == np.float32(signal[s_min:s_min + MINUTE].min()),
+          "signal_min_1m value")
+    window = signal[s_min:s_min + MINUTE].astype(np.float32)
+    avg = float(got["wave_avg"]["attrs"]["avg_signal"][0])
+    # an f32 mean of 7,500 terms in the card's order: 1e-5 of the mean
+    # magnitude, as phase 3 holds the waveform mean
+    check(abs(avg - window.astype(np.float64).mean())
+          <= 1e-5 * np.abs(window).mean(), f"wave_avg {avg}")
+    first = total - stream.capacity
+    starts = np.arange(0, stream.capacity - MINUTE + 1, MINUTE // 2)
+    want = np.stack([signal[first + a:first + a + MINUTE]
+                     for a in starts]).astype(np.float32)
+    check(np.array_equal(got["sliding_30s"]["attrs"]["signal"], want),
+          "sliding_30s windows")
+    emit({"phase": "stream", "feed": "waveform", "checks": "passed",
+          "sliding_windows": int(starts.shape[0])})
+
+
+def _export_share(spans, query: str) -> dict:
+    """Host time of the ring export inside a standing query's ticks, from
+    the trace spans (``stream/query`` of that query, and the
+    ``compile/export`` spans of the same tick)."""
+    ticks = {sp.trace_id: sp.duration for sp in spans
+             if sp.name == "stream/query" and sp.attrs.get("query") == query}
+    export = sum(sp.duration for sp in spans
+                 if sp.name == "compile/export" and sp.trace_id in ticks)
+    execute = sum(sp.duration for sp in spans
+                  if sp.name == "compile/execute" and sp.trace_id in ticks)
+    total = sum(ticks.values())
+    return {"ticks": len(ticks), "query_s": total, "execute_s": execute,
+            "export_s": export, "export_share": export / total}
+
+
+def _device_times(bd) -> dict:
+    """Card time of one join execution, by kernel and copy, from
+    torch.profiler: only the events that ran on the card (a host op's
+    self device time repeats its kernels'), less the profiler's own
+    activity-buffer requests."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bd.query(JOIN)
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CPU
+                or ev.key.startswith("Activity Buffer")):
+            continue
+        us = ev.self_device_time_total
+        if us > 0:
+            rows[ev.key] = rows.get(ev.key, 0.0) + us
+    total = sum(rows.values())
+    copy = sum(us for key, us in rows.items() if "HtoD" in key)
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_us": total, "htod_us": copy,
+            "htod_share": copy / total if total else None,
+            "top": [[key[:80], us] for key, us in top]}
+
+
+def paired_feed(bd) -> dict:
+    """The ABP/ECG event-time pair under the standing one-hour join;
+    returns the join's last result for the numpy checks."""
+    from repro_torch.data.mimic import stream_mimic_paired_waveforms
+    from repro_torch.obs import trace
+    cq = bd.register_continuous(JOIN, JOIN_EVERY, name="abp_ecg_join")
+    trace.reset()
+    trace.set_enabled(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _feed(stream_mimic_paired_waveforms(bd, **PAIRED_FEED),
+          {"abp_ecg_join": cq})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace.set_enabled(False)
+    share = _export_share(trace.spans(), "abp_ecg_join")
+    emit({"phase": "stream", "feed": "paired", "wall_s": wall,
+          "ticks": PAIRED_FEED["num_batches"] + 1,
+          "queries": {"abp_ecg_join": cq.metrics()},
+          "join_tick_host": share, "join_card": _device_times(bd)})
+    check(cq.executions > 0 and cq.last_value is not None,
+          "the join never ran")
+    value = cq.last_value
+    _set_backend("interpreter")
+    check(_same_value(bd.query(JOIN).value, value),
+          "abp_ecg_join: the compiled result differs from the interpreter")
+    _set_backend("jit")
+    bd.streams.deregister("abp_ecg_join")
+    return value
+
+
+def sharded_feed() -> None:
+    """The example's second half at full capacity: 4 shards over 2
+    StreamEngines under the rolling average, one live rebalance
+    mid-feed; every tick equal bit for bit to the unsharded feed."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.data.mimic import stream_mimic_waveforms
+    results = {}
+    for shards in (1, 4):
+        dep = default_deployment(stream_engines=2)
+        cq = dep.register_continuous(ROLLING_AVG, 1, name="rolling_avg")
+        values, move = [], None
+        t0 = time.perf_counter()
+        for info in stream_mimic_waveforms(
+                dep, batch_rows=WAVE_FEED["batch_rows"],
+                num_batches=SHARDED_BATCHES,
+                capacity=WAVE_FEED["capacity"], seed=SEED, shards=shards,
+                num_engines=2 if shards > 1 else None):
+            values.append(_ran(dep, info))
+            if shards > 1 and info["batch"] == SHARDED_BATCHES // 2:
+                move = dep.rebalance_stream(WAVE, shard=0,
+                                            to_engine="streamstore1")
+        torch.cuda.synchronize()
+        results[shards] = values
+        check(cq.errors == 0, f"rolling_avg: {cq.last_error}")
+        emit({"phase": "stream", "feed": f"sharded_{shards}",
+              "wall_s": time.perf_counter() - t0, "rebalance": move,
+              "queries": {"rolling_avg": cq.metrics()}})
+    check(sum(len(v) for v in results[4]) == SHARDED_BATCHES,
+          "the sharded rolling average missed ticks")
+    check(all(_same_value(a, b) for a, b in zip(results[1], results[4])),
+          "the sharded feed differs from the unsharded feed")
+    emit({"phase": "stream", "feed": "sharded", "checks": "passed",
+          "ticks_compared": SHARDED_BATCHES})
+
+
+def join_checks(bd, value) -> None:
+    """The join against numpy over the generator's rows; its bounds
+    against np.searchsorted (these launches follow the path's count)."""
+    from repro_torch.core.interop import to_numpy
+    from repro_torch.kernels.stream import ops
+    cols = to_numpy(value)["columns"]
+    abp, ecg = _paired_rows(PAIRED_FEED["batch_rows"],
+                            PAIRED_FEED["num_batches"], PAIRED_FEED["seed"],
+                            PAIRED_FEED["jitter"])
+    # the latest hour the watermark (the last ts, after the final flush)
+    # has closed
+    start = (abp.shape[0] - 1 - HOUR) // HOUR * HOUR
+    ts = np.arange(start, start + HOUR, dtype=np.float64)
+    check(cols["dt"].shape == (HOUR,), f"join pairs {cols['dt'].shape}")
+    check(np.all(cols["dt"] == np.float32(0.25)), "join dt")
+    check(np.array_equal(cols["l_ts"], ts.astype(np.float32))
+          and np.array_equal(cols["r_ts"], (ts + 0.25).astype(np.float32)),
+          "join timestamps")
+    check(np.array_equal(cols["l_abp"],
+                         abp[start:start + HOUR].astype(np.float32))
+          and np.array_equal(cols["r_ecg"],
+                             ecg[start:start + HOUR].astype(np.float32)),
+          "join values")
+    left = bd.engines["streamstore0"].get("mimic2v26.abp_stream").ewindow(
+        float(HOUR)).attrs["ts"].double()
+    right = bd.engines["streamstore0"].get("mimic2v26.ecg_stream").ewindow(
+        float(HOUR)).attrs["ts"].double()
+    rs = torch.sort(right, stable=True).values
+    lo, hi = ops.join_bounds(left, rs, 0.5)
+    lt_np, rs_np = left.cpu().numpy(), rs.cpu().numpy()
+    check(np.array_equal(lo.cpu().numpy(),
+                         np.searchsorted(rs_np, lt_np - 0.5, side="left"))
+          and np.array_equal(hi.cpu().numpy(), np.searchsorted(
+              rs_np, lt_np + 0.5, side="right")), "join bounds")
+    emit({"phase": "stream", "feed": "paired", "checks": "passed",
+          "pairs": int(cols["dt"].shape[0])})
+
+
+# -- 6. kernel times --------------------------------------------------------------
 def _graph_ms(fns, reps: int = 20) -> float:
     """Mean device time of one call, from CUDA events around replays of a
     CUDA graph that holds ``reps`` passes over ``fns`` (so the host's
@@ -314,7 +755,7 @@ def _graph_ms(fns, reps: int = 20) -> float:
     return start.elapsed_time(end) / (5 * reps * len(fns))
 
 
-def kernel_times(launches: dict, err: dict) -> None:
+def quant_kernel_rows(launches: dict, err: dict) -> list:
     from repro_torch.kernels.quant_cast import ref
     from repro_torch.kernels.quant_cast import quant_cast as k
     n = int(np.prod(KV_LEAF))
@@ -358,7 +799,120 @@ def kernel_times(launches: dict, err: dict) -> None:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
             "shape": [nb, k.BLOCK], "bytes": nbytes, "operations": ops})
-    emit({"kernels": rows})
+    return rows
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` of device memory traffic and ``ops``
+    f64 operations, and which of the two bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F64_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def _minmax_times(w: int, size: int, copies: int) -> dict:
+    """window_minmax (max) at (w, size), its plain version and torch.amax,
+    over ``copies`` rotating inputs (past the 50 MB L2 together)."""
+    from repro_torch.kernels.stream import ref
+    from repro_torch.kernels.stream import stream as sk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    xs = [torch.randn((w, size), generator=gen, device="cuda",
+                      dtype=torch.float64) for _ in range(copies)]
+    # torch.amax computes the same function on rows without a zero:
+    # checked bitwise on these inputs before it is timed
+    check(all(_same_bits(torch.amax(x, dim=1), sk.window_minmax_2d(x, True))
+              for x in xs), "torch.amax differs from window_minmax")
+    out = {"shape": [w, size],
+           "ms": _graph_ms([lambda x=x: sk.window_minmax_2d(x, True)
+                            for x in xs]),
+           "plain_ms": _graph_ms([lambda x=x: ref.window_minmax(x, True)
+                                  for x in xs]),
+           "library_ms": _graph_ms([lambda x=x: torch.amax(x, dim=1)
+                                    for x in xs]),
+           "library": "torch.amax(x, dim=1)"}
+    # read every value once, write one a row; one compare-select a value
+    out.update(_bound(8 * w * size + 8 * w, w * size))
+    return out
+
+
+def _latency_bound(rs: torch.Tensor, tol: float, nl: int,
+                   steps: int) -> dict:
+    """join_bounds' time as its chains of dependent loads set it: each
+    key's ``steps`` bisection levels (a load for lo and one for hi), with
+    at most the card's resident threads' keys in flight.  The time of
+    one level is the kernel's own, for one lone key: the difference
+    between ``steps`` levels and 5 over 2 ** 19 right keys, whose levels
+    6 on each load a line the key has not loaded (an L2 hit, L1 being
+    cold at launch) until the last four, which share one."""
+    from repro_torch.kernels.stream import stream as sk
+    props = torch.cuda.get_device_properties(0)
+    resident = (props.multi_processor_count
+                * props.max_threads_per_multi_processor)
+    lt = rs[123457:123458] - 0.25             # one key inside the range
+    full = _graph_ms([lambda: sk.join_bounds_1d(lt, rs, tol, steps)],
+                     reps=100)
+    short = _graph_ms([lambda: sk.join_bounds_1d(lt, rs, tol, 5)],
+                      reps=100)
+    level_ms = (full - short) / (steps - 5)
+    waves = -(-nl // resident)
+    return {"latency_bound_ms": waves * steps * level_ms,
+            "level_ms": level_ms, "resident_threads": resident,
+            "waves": waves,
+            "note": ("latency_bound_ms = waves x steps x level_ms: a model "
+                     "of the dependent loads from a lone key's levels, "
+                     "not a floor (keys that share a level's line in one "
+                     "SM may find it in L1); bound_ms is the bytes bound")}
+
+
+def stream_kernel_rows(launches: dict, err: dict) -> list:
+    from repro_torch.kernels.stream import ops, ref
+    from repro_torch.kernels.stream import stream as sk
+    source = "src/repro_torch/kernels/stream/csrc/stream.cu"
+    # (1, 450,000): the main path's one-hour window, 3.6 MB; sixteen
+    # copies rotate past L2.  (1024, 7,500): one-minute windows batched,
+    # 61 MB a copy, past L2 by itself.
+    minmax = _minmax_times(1, HOUR, 16)
+    minmax["note"] = ("at W = 1 the latency of its two launches dominates: "
+                      "3.6 MB take ~1 us at the memory rate")
+    minmax["batched"] = _minmax_times(1024, MINUTE, 2)
+    # join_bounds at 524,288 x 524,288 keys shaped like the main path's
+    # (right keys 0.25 after the left ones, tol 0.5); eight copies of
+    # the 8.4 MB of keys rotate past L2
+    n, tol = 524288, 0.5
+    steps = ops.steps(n)
+    keys = []
+    for i in range(8):
+        lt = torch.arange(n, dtype=torch.float64, device="cuda") + i * n
+        keys.append((lt, lt + 0.25))
+    join = {"shape": [n, n], "steps": steps,
+            "ms": _graph_ms([lambda a=a, b=b: sk.join_bounds_1d(a, b, tol,
+                                                                 steps)
+                             for a, b in keys]),
+            "plain_ms": _graph_ms([lambda a=a, b=b: ref.join_bounds(a, b,
+                                                                     tol)
+                                   for a, b in keys]),
+            "library_ms": _graph_ms([
+                lambda a=a, b=b: (torch.searchsorted(b, a - tol),
+                                  torch.searchsorted(b, a + tol,
+                                                     right=True))
+                for a, b in keys]),
+            "library": "torch.searchsorted x2 (two calls)",
+            "dependent_loads_per_key": 2 * steps}
+    # read both key arrays, write lo and hi; per left key two roundings
+    # and 2 * steps compares
+    join.update(_bound(8 * n + 8 * n + 4 * n + 4 * n, n * (2 + 2 * steps)))
+    join.update(_latency_bound(keys[0][1], tol, n, steps))
+    rows = []
+    for name, t, line in (("window_minmax", minmax, 66),
+                          ("join_bounds", join, 106)):
+        rows.append({"name": f"stream.{name}", "route": "cuda",
+                     "source": source,
+                     "replaces": f"{STREAM_REPLACES}:{line}",
+                     "launches": launches[name],
+                     "max_abs_err": err[name], **t})
+    return rows
 
 
 def main() -> int:
@@ -370,11 +924,14 @@ def main() -> int:
     from repro_torch.core.api import default_deployment
     from repro_torch.data.mimic import load_mimic_demo, mimic_demo_arrays
     from repro_torch.kernels.quant_cast import quant_cast as k
+    from repro_torch.kernels.stream import stream as sk
+    from repro_torch.stream import compile as qc
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     build()
     err = parity()
+    stream_err = stream_parity()
 
     bd = default_deployment()
     t0 = time.perf_counter()
@@ -384,7 +941,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0, "device": str(bd.device)})
     data = mimic_demo_arrays(seed=SEED, **MAIN_PATH)
 
-    k.reset_launch_counts()                   # the main path starts here
+    k.reset_launch_counts()                   # the query path starts here
     queries(bd, data)
     kv = quant_route(bd)
     torch.cuda.synchronize()
@@ -393,10 +950,32 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"the main path launched no {name} kernel")
     quant_checks(bd, kv)
-    del kv
+    del kv, bd
     torch.cuda.empty_cache()
 
-    kernel_times(launches, err)
+    bds = default_deployment(stream_engines=2)
+    _set_backend("jit")
+    qc.reset_stats()
+    sk.reset_launch_counts()                  # the stream path starts here
+    waveform_feed(bds)
+    join = paired_feed(bds)
+    sharded_feed()
+    torch.cuda.synchronize()
+    stream_launches = sk.launch_counts()      # ... and ends here
+    stats = qc.stats()
+    emit({"phase": "launches", "stream_path": stream_launches,
+          "compile_stats": stats})
+    for name, count in stream_launches.items():
+        check(count > 0, f"the stream path launched no {name} kernel")
+    check(stats["fallbacks"] == 0 and stats["executions"] > 0,
+          f"compiled path: {stats}")
+    join_checks(bds, join)
+    del join, bds
+    torch.cuda.empty_cache()
+
+    rows = quant_kernel_rows(launches, err)
+    rows += stream_kernel_rows(stream_launches, stream_err)
+    emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -6,11 +6,14 @@ deployment, mirroring the docker-compose topology of the v0.1 release
 (catalog + data engines + middleware).
 
 Every deployment names its ``device``: the engines keep their tensors
-there and the quant cast runs its CUDA kernel there.  The streaming and
-ml islands are not ported yet (ROADMAP.md "Streaming slice", "ML slice").
+there, the streams materialize their window views there, and the quant
+cast and the compiled streaming path run their CUDA kernels there.  The
+ml island and durable streams are not ported yet (ROADMAP.md "ML slice",
+"Durability slice").
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -22,6 +25,10 @@ from repro_torch.core.engines import (DenseHBMEngine, Engine,
 from repro_torch.core.migrator import Migrator
 from repro_torch.core.monitor import Monitor, MonitoringTask
 from repro_torch.core.planner import Planner, PlannerConfig, Response
+from repro_torch.stream.continuous import ContinuousQuery, StreamRuntime
+
+_DURABILITY_SLICE = ("durable streams are not ported yet: ROADMAP.md "
+                     "\"Durability slice\"")
 
 
 class BigDawg:
@@ -35,6 +42,8 @@ class BigDawg:
         self.planner_config = planner_config or PlannerConfig()
         self.planner = Planner(self.catalog, self.engines, self.monitor,
                                self.migrator, config=self.planner_config)
+        self.streams = StreamRuntime(self.planner, self.monitor,
+                                     self.engines)
         self.monitoring_task: Optional[MonitoringTask] = None
 
     # -- administrative interface (paper §IV) ---------------------------------
@@ -68,6 +77,184 @@ class BigDawg:
     def query(self, bql: str, training: bool = False) -> Response:
         return self.planner.process_query(bql, is_training_mode=training)
 
+    # -- streaming island (repro_torch.stream) ----------------------------------
+    def ensure_stream_engines(self, n: int) -> list:
+        """Grow the streaming island to ``n`` StreamEngines
+        (``streamstore0..streamstore{n-1}``) on the deployment's device,
+        registering the standard casts for each new engine — binary into
+        the array island, staged into the relational island, and the
+        live ``stream`` state-move route between every pair of
+        StreamEngines.  Idempotent."""
+        from repro_torch.stream.engine import StreamEngine
+        names = [f"streamstore{i}" for i in range(max(1, n))]
+        for ename in names:
+            if ename in self.engines:
+                continue
+            self.add_engine(StreamEngine(ename, self.device))
+            if "densehbm0" in self.engines:
+                self.register_cast(ename, "densehbm0", "binary")
+            for host in ("hoststore0", "hoststore1"):
+                if host in self.engines:
+                    self.register_cast(ename, host, "staged")
+        # only the numbered pool is managed here; a user-added engine
+        # like "streamstore_backup" is left alone (and must not break
+        # the numeric sort below)
+        stream_engines = [e for e in self.engines
+                          if e.startswith("streamstore")
+                          and e[len("streamstore"):].isdigit()]
+        for src in stream_engines:
+            for dst in stream_engines:
+                if src == dst:
+                    continue
+                s = self.catalog.engine_by_name(src)
+                d = self.catalog.engine_by_name(dst)
+                if not any(c.method == "stream" for c in
+                           self.catalog.casts_between(s.eid, d.eid)):
+                    self.register_cast(src, dst, "stream")
+        return sorted(stream_engines,
+                      key=lambda e: int(e[len("streamstore"):]))
+
+    def register_stream(self, engine_name: str, name=None, fields=None,
+                        capacity: int = 4096, shards: int = 1,
+                        shard_key: Optional[str] = None,
+                        num_engines: Optional[int] = None,
+                        rolling: bool = True, block_rows: int = 64,
+                        ts_field: Optional[str] = None,
+                        max_delay: float = 0.0,
+                        idle_timeout: Optional[float] = None,
+                        durability: Optional[str] = None,
+                        checkpoint_every_rows: Optional[int] = None,
+                        dead_letter: bool = False, *, spec=None):
+        """Create a ring-buffer stream and register it in the catalog (so
+        the Planner can place streaming nodes).
+
+        Primary form — a declarative spec (see
+        ``repro_torch.stream.spec``):
+
+            bd.register_stream("streamstore0", StreamSpec(
+                "icu.abp", ("ts", "abp"), capacity=512,
+                sharding=Sharding(shards=2),
+                event_time=EventTime("ts", max_delay=4.0)))
+
+        Legacy form — ``register_stream(engine, name, fields,
+        **kwargs)`` — still works: it folds the kwargs into the
+        identical spec but emits a ``DeprecationWarning``.  A spec with
+        ``Durability`` raises ``NotImplementedError``: durable streams
+        come with the durability slice.
+        """
+        from repro_torch.stream.spec import StreamSpec
+        if isinstance(name, StreamSpec):
+            if spec is not None:
+                raise TypeError("pass the StreamSpec positionally or "
+                                "via spec=, not both")
+            spec, name = name, None
+        if spec is None:
+            warnings.warn(
+                "register_stream(engine, name, fields, **kwargs) is "
+                "deprecated; build a repro_torch.stream.spec.StreamSpec "
+                "and call register_stream(engine, spec)",
+                DeprecationWarning, stacklevel=2)
+            spec = StreamSpec.from_kwargs(
+                name, fields, capacity=capacity, shards=shards,
+                shard_key=shard_key, num_engines=num_engines,
+                rolling=rolling, block_rows=block_rows,
+                ts_field=ts_field, max_delay=max_delay,
+                idle_timeout=idle_timeout, durability=durability,
+                checkpoint_every_rows=checkpoint_every_rows,
+                dead_letter=dead_letter)
+        elif name is not None or fields is not None:
+            raise TypeError("pass either a StreamSpec or the legacy "
+                            "name/fields/kwargs, not both")
+        return self._register_spec(engine_name, spec)
+
+    def _register_spec(self, engine_name: str, spec):
+        """The one registration path (both API forms land here)."""
+        from repro_torch.stream.engine import (SEQ_FIELD, ShardedStream,
+                                               Stream, StreamEngine)
+        if spec.durability is not None:
+            raise NotImplementedError(_DURABILITY_SLICE)
+        if not isinstance(self.engines[engine_name], StreamEngine):
+            raise TypeError(f"{engine_name} is not a StreamEngine")
+        name, fields = spec.name, spec.fields
+        et = spec.event_time
+        if spec.shards <= 1:
+            stream = Stream(name, fields, spec.capacity,
+                            rolling=spec.rolling, ts_field=spec.ts_field,
+                            max_delay=et.max_delay if et else 0.0,
+                            idle_timeout=et.idle_timeout if et else None)
+            stream.spec = spec
+            self.register_object(engine_name, name, stream,
+                                 fields=tuple(fields))
+            self._stream_extras(engine_name, stream, spec)
+            return stream
+        sh = spec.sharding
+        # ensure_stream_engines returns the whole (possibly larger)
+        # streaming island; spread the shards over only the first
+        # `num_engines` engines so the documented contract holds
+        engine_names = self.ensure_stream_engines(
+            sh.num_engines)[:sh.num_engines]
+        per_shard = max(1, -(-int(spec.capacity) // sh.shards))  # ceil
+        pairs = []
+        for i in range(sh.shards):
+            ename = engine_names[i % len(engine_names)]
+            shard = Stream(f"{name}@shard{i}",
+                           tuple(fields) + (SEQ_FIELD,),
+                           per_shard, rolling=spec.rolling)
+            self.register_object(ename, shard.name, shard,
+                                 fields=shard.fields)
+            pairs.append((ename, shard))
+        handle = ShardedStream(name, fields, pairs,
+                               shard_key=sh.shard_key,
+                               block_rows=sh.block_rows,
+                               ts_field=spec.ts_field,
+                               max_delay=et.max_delay if et else 0.0,
+                               idle_timeout=et.idle_timeout if et
+                               else None)
+        handle.spec = spec
+        # the handle lives on every participating engine AND the caller's
+        # anchor engine (shards always spread over streamstore0..spread-1,
+        # but engine_name must still resolve the logical stream)
+        participating = sorted(set(e for e, _ in pairs) | {engine_name})
+        self.register_object(participating[0], name, handle,
+                             fields=tuple(fields))
+        for ename in participating[1:]:
+            self.engines[ename].put(name, handle)
+        self._stream_extras(engine_name, handle, spec)
+        return handle
+
+    def _stream_extras(self, engine_name: str, stream, spec) -> None:
+        """Shared tail of registration: the dead-letter sink."""
+        from repro_torch.stream.engine import Stream
+        dead_letter = (spec.event_time is not None
+                       and spec.event_time.dead_letter)
+        if dead_letter and stream._late_sink is None:
+            stream._late_sink = Stream(f"{stream.name}.__late",
+                                       stream.fields, spec.capacity)
+        if stream._late_sink is not None:
+            self.register_object(engine_name, stream._late_sink.name,
+                                 stream._late_sink,
+                                 fields=tuple(stream.fields))
+
+    def recover_stream(self, engine_name: str, directory: str):
+        """Rebuild a durable stream from its on-disk directory: comes
+        with the durability slice."""
+        raise NotImplementedError(_DURABILITY_SLICE)
+
+    def rebalance_stream(self, stream: str, shard: Optional[int] = None,
+                         to_engine: Optional[str] = None):
+        """Move one shard of a sharded stream to another StreamEngine
+        (live ring-buffer state; standing queries keep running) — see
+        ``StreamRuntime.rebalance``."""
+        return self.streams.rebalance(stream, shard=shard,
+                                      to_engine=to_engine)
+
+    def register_continuous(self, bql: str, every_n_ticks: int = 1,
+                            name: Optional[str] = None) -> ContinuousQuery:
+        """Register a standing BQL query; it re-executes (lean mode, so
+        2nd+ ticks ride the signature plan cache) on every
+        ``every_n_ticks``-th ``self.streams.tick()``."""
+        return self.streams.register_continuous(bql, every_n_ticks, name)
+
     def start_monitoring(self, interval_seconds: float = 30.0
                          ) -> MonitoringTask:
         def refresh() -> None:
@@ -84,12 +271,16 @@ class BigDawg:
 
 
 def default_deployment(device=None,
-                       planner_config: Optional[PlannerConfig] = None
-                       ) -> BigDawg:
+                       planner_config: Optional[PlannerConfig] = None,
+                       stream_engines: int = 1) -> BigDawg:
     """The v0.1 release topology: one relational, one array, one text engine
     (+ a second relational engine, as in the paper's docker-compose which
     ships postgres-data1 and postgres-data2), with binary+staged casts and
-    the quant cast from the array engine into the KV engine.
+    the quant cast from the array engine into the KV engine — extended
+    with the streaming island's StreamEngine (S-Store analog,
+    arXiv:1609.07548), added last so the shared engines keep their eids.
+    ``stream_engines`` grows the streaming island for sharded streams
+    (registering a sharded stream grows it on demand too).
 
     ``device`` defaults to ``"cuda"``; without a GPU that raises — pass
     ``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
@@ -117,4 +308,8 @@ def default_deployment(device=None,
             if not same_kind:
                 bd.register_cast(src, dst, "staged")
     bd.register_cast("densehbm0", "kvstore0", "quant")
+    # streaming island: window->array rides the fast binary route;
+    # window->table pays the staged (format-translating) route; between
+    # StreamEngines the live "stream" state-move route backs rebalancing
+    bd.ensure_stream_engines(stream_engines)
     return bd

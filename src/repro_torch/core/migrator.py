@@ -10,8 +10,15 @@ Routes:
            pays format translation + dispatch costs.
   quant  — binary + int8 re-coding through the quant_cast CUDA kernel
            (KV-cache pages, gradient compression) — a beyond-paper cast.
-  stream — live stream-state move between StreamEngines: not ported yet
-           (ROADMAP.md "Streaming slice").
+  stream — live stream-state *move* between StreamEngines: the ring
+           buffer's full state (data, cumulative rings, seq watermark,
+           drop counters, rate history — and for event-time streams the
+           insertion buffer, low watermark, and late-row counters) is
+           deep-copied onto the destination and the source copy deleted,
+           so a shard can be rebalanced under a running standing query
+           without losing continuity.  ``MigrationParams(copy=True)``
+           instead builds a detached, renamed **read replica** and leaves
+           the source live.
 
 ``reshard`` is the binary route between devices: ``tensor.to(device)``.
 """
@@ -40,6 +47,7 @@ class MigrationParams:
     method: Optional[str] = None        # None -> negotiate from catalog
     dest_schema: str = ""
     quant_block: int = 128
+    copy: bool = False                  # stream route: replica, not move
 
 
 @dataclasses.dataclass
@@ -100,9 +108,8 @@ class Migrator:
                 self._quant_migrate(engine_from, object_from, engine_to,
                                     object_to, params)
             elif method == "stream":
-                raise NotImplementedError(
-                    "the stream cast is not ported yet: ROADMAP.md "
-                    "\"Streaming slice\"")
+                self._stream_migrate(engine_from, object_from, engine_to,
+                                     object_to, copy=params.copy)
             else:
                 raise MigrationException(f"unknown cast method {method!r}")
             t2 = time.perf_counter()
@@ -140,6 +147,56 @@ class Migrator:
                                   key=lambda c: order.get(c.method, 9)
                                   )[0].method
         return "binary"
+
+    def _stream_migrate(self, engine_from: Engine, object_from: str,
+                        engine_to: Engine, object_to: str,
+                        copy: bool = False) -> None:
+        """Move a live ring buffer between StreamEngines (see module
+        docstring: this route moves by default; ``copy=True`` builds a
+        detached read replica instead and leaves the source live).
+
+        Shard moves are safe under concurrent producers:
+        ``ShardedStream.migrate_shard`` pauses the shard's ordered
+        committer, so every seq block reserved before the move drains
+        into the exported state and blocks reserved during it publish
+        to the new ring afterwards — in-flight reservations are carried,
+        never lost.  ``Stream.export_state`` likewise drains its own
+        committer first.  Only a *direct* move of an unsharded stream
+        still needs external serialization: a block reserved after the
+        export but before the delete below lands in the doomed source
+        object (pause the feed, or move between ticks)."""
+        from repro_torch.stream.engine import (ShardedStream, Stream,
+                                               StreamEngine)
+        obj = engine_from.get(object_from)
+        allowed = (Stream, ShardedStream) if copy else (Stream,)
+        if not isinstance(obj, allowed):
+            raise MigrationException(
+                f"stream cast needs a "
+                f"{' or '.join(c.__name__ for c in allowed)} source, "
+                f"got {type(obj).__name__} for {object_from!r}")
+        if not isinstance(engine_to, StreamEngine):
+            raise MigrationException(
+                f"stream cast needs a StreamEngine destination, "
+                f"{engine_to.name} is {engine_to.kind}")
+        if engine_to is engine_from and object_to == object_from:
+            # moving: put + delete source would delete the freshly
+            # imported copy; copying: put would overwrite the primary
+            raise MigrationException(
+                f"stream cast cannot {'copy' if copy else 'move'} "
+                f"{object_from!r} onto itself on {engine_from.name}")
+        if copy:
+            engine_to.put(object_to, obj.clone(object_to))
+            return
+        state = obj.export_state()
+        engine_to.put(object_to, Stream.from_state(state))
+        engine_from.delete(object_from)
+        # a move changes physical placement, so the catalog must follow
+        # (copy routes leave the source object untouched and don't)
+        if (self.catalog is not None
+                and self.catalog.object_by_name(object_to) is not None
+                and self.catalog.engine_by_name(engine_to.name)
+                is not None):
+            self.catalog.relocate_object(object_to, engine_to.name)
 
     def _quant_migrate(self, engine_from: Engine, object_from: str,
                        engine_to: Engine, object_to: str,

@@ -233,6 +233,29 @@ class Planner:
                        if all(self.engines[m].has(r) for r in refs)]
             if holding:
                 members = holding
+        if node.island == "streaming" and len(members) > 1 and refs:
+            # a ShardedStream handle lives on every participating
+            # StreamEngine, so all placements of a gather read are
+            # semantically identical — pin to the referenced handles'
+            # home engines instead of enumerating one plan per engine.
+            # A single-stream read pins to one engine; a cross-stream
+            # join pins to both handles' homes (the only placements
+            # where one side's gather is engine-local), so enumeration
+            # stays O(streams), not O(engines)
+            homes = set()
+            for r in refs:
+                holder = next((m for m in members
+                               if self.engines[m].has(r)), None)
+                home = getattr(self.engines[holder].get(r),
+                               "home_engine", None) if holder else None
+                if home is None:
+                    homes = None
+                    break
+                homes.add(home)
+            if homes:
+                pinned = [m for m in members if m in homes]
+                if pinned:
+                    members = pinned
         # straggler avoidance (Monitor feedback loop, DESIGN.md §5)
         slow = set(self.monitor.stragglers())
         fast = [m for m in members if m not in slow]

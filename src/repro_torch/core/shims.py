@@ -7,7 +7,9 @@ to *parse and execute* the island language over the engine's stored objects:
   array island      — AFL subset (scan/filter/project/aggregate/cross_join/
                       redimension/sort)
   text island       — JSON op spec ({'op': 'scan'|'range', 'table': ...})
-  streaming island  — not ported yet (ROADMAP.md "Streaming slice")
+  streaming island  — functional ops over ring-buffer streams (append/
+                      window/aggregate/rate/snapshot),
+                      repro_torch.stream.shim
   ml island         — not ported yet (ROADMAP.md "ML slice")
 """
 from __future__ import annotations
@@ -329,9 +331,8 @@ def execute(island: str, engine: Engine, query: str):
     if island == "text":
         return execute_text(engine, query)
     if island == "streaming":
-        raise NotImplementedError(
-            "the streaming island is not ported yet: ROADMAP.md "
-            "\"Streaming slice\"")
+        from repro_torch.stream.shim import execute_stream
+        return execute_stream(engine, query)
     if island == "ml":
         raise NotImplementedError(
             "the ml island is not ported yet: ROADMAP.md \"ML slice\"")

@@ -5,8 +5,9 @@ A library is built at first use, from the sources in the repository only,
 into ``build/repro_torch/`` at the root of the checkout (see
 ``_build_dir`` for an installed package), under a name keyed by a hash
 of its sources and flags, so an edited source is rebuilt and an
-unchanged one is reused.  Builds are serialised by a lock: the Executor
-runs casts on a thread pool, and two first calls may race.
+unchanged one is reused.  Each library has its own lock, so two first
+calls of one library (the Executor runs casts on a thread pool) build it
+once, while two libraries may build at the same time.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _LIBS and _KEY_LOCKS
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_KEY_LOCKS: Dict[str, threading.Lock] = {}
 # nvcc's stderr of each build made in this process (ptxas register and
 # spill report), by library name
 BUILD_LOGS: Dict[str, str] = {}
@@ -80,6 +82,12 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
         lib = _LIBS.get(key)
         if lib is not None:
             return lib
+        key_lock = _KEY_LOCKS.setdefault(key, threading.Lock())
+    with key_lock:
+        with _LOCK:
+            lib = _LIBS.get(key)
+        if lib is not None:
+            return lib
         target = BUILD_DIR / f"{key}.so"
         if not target.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -100,5 +108,6 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         lib = ctypes.CDLL(str(target))
-        _LIBS[key] = lib
+        with _LOCK:
+            _LIBS[key] = lib
         return lib

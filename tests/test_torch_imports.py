@@ -40,8 +40,32 @@ def test_importing_the_port_loads_no_jax():
                                          "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     count, loaded = proc.stdout.split(" ", 1)
-    assert int(count) >= 25
+    assert int(count) >= 37
     assert loaded.strip() == "[]"
+
+
+STREAM_MODULES = ["repro_torch.stream", "repro_torch.stream.spec",
+                  "repro_torch.stream.engine", "repro_torch.stream.shim",
+                  "repro_torch.stream.compile",
+                  "repro_torch.stream.continuous",
+                  "repro_torch.kernels.stream.ops",
+                  "repro_torch.kernels.stream.ref",
+                  "repro_torch.kernels.stream.stream"]
+
+
+@pytest.mark.parametrize("module", STREAM_MODULES)
+def test_streaming_modules_load_no_jax(module):
+    """Each module of the streaming slice, imported alone in a fresh
+    interpreter, loads neither jax nor the reference package."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -6,9 +6,8 @@ packages load the same numpy-seeded MIMIC demo at the sizes of the
 test_polystore fixture; values and dtypes must be equal, float sums
 within ``assert_same``'s stated tolerance.
 
-The JAX deployment also carries the streaming island's ``streamstore0``
-(added last), which the port leaves for a later slice; catalog rows are
-compared over the five engines both have.
+Both deployments carry the streaming island's ``streamstore0`` (added
+last), so their catalogs match whole.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -175,18 +174,9 @@ def test_catalog_rows(pair, table):
     jbd, bd = pair
     port = bd.query(f"bdcatalog(select * from {table})").value
     ref = jbd.query(f"bdcatalog(select * from {table})").value
-    port_eids = {e.eid for e in bd.catalog.engines.values()}
-
-    def shared(row):
-        eids = [row[k] for k in ("eid", "engine_id", "src_eid", "dst_eid")
-                if k in row]
-        return all(e in port_eids for e in eids)
-
-    if table == "islands":
-        ref = [r for r in ref if r["name"] not in ("streaming",)]
-    assert [r for r in ref if shared(r)] == port
+    assert ref == port
     names = bd.query("bdcatalog(select name from engines)").value
-    assert {"hoststore0", "densehbm0", "kvstore0"} <= {
+    assert {"hoststore0", "densehbm0", "kvstore0", "streamstore0"} <= {
         r["name"] for r in names}
 
 
@@ -311,16 +301,18 @@ def test_tensorstore_int8_kv_pages(writer):
 
 
 def test_later_slices_raise_not_implemented(pair):
+    """The ml island, and the streaming island's durable streams (the
+    shim's ``replay`` and ``recover_stream``), come with later slices."""
     from repro_torch.core import shims
     from repro_torch.core.migrator import reshard
     _, bd = pair
-    with pytest.raises(NotImplementedError, match="Streaming slice"):
-        bd.migrator.migrate(bd.engines["densehbm0"], "myarray",
-                            bd.engines["kvstore0"], "s",
-                            MigrationParams(method="stream"))
-    for island, slice_name in (("streaming", "Streaming"), ("ml", "ML")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            shims.execute(island, bd.engines["densehbm0"], "x")
+    with pytest.raises(NotImplementedError, match="ML slice"):
+        shims.execute("ml", bd.engines["densehbm0"], "x")
+    with pytest.raises(NotImplementedError, match="Durability slice"):
+        shims.execute("streaming", bd.engines["streamstore0"],
+                      "replay(any.stream)")
+    with pytest.raises(NotImplementedError, match="Durability slice"):
+        bd.recover_stream("streamstore0", "/nonexistent")
     t = torch.arange(5, dtype=torch.int32)
     moved = reshard(t, "cpu")
     assert moved.device.type == "cpu" and torch.equal(moved, t)
