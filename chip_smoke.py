@@ -8,7 +8,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them.  It prints one JSON object per line:
 
 1. build     builds the CUDA kernels from the sources in the checkout,
-             one nvcc for each library, all started together;
+             one nvcc for each of the three libraries, all started
+             together;
 2. parity    holds each kernel against its plain PyTorch version on the
              card, bitwise: quant_cast on small shapes, an all-zero
              block, a row holding a NaN and the main path's shapes; the
@@ -49,13 +50,44 @@ without them.  It prints one JSON object per line:
              export's share of the join's ticks (host, from the trace
              spans) and one join's card time by kernel and copy
              (torch.profiler);
-6. kernels   each kernel's time (CUDA events over a CUDA graph of
+6. flash     flash attention against its plain version on the card: the
+             shapes of tests/test_kernels.py, the serve shape (8, 1024,
+             12, 128) in f32 and bf16, a ragged (1, 1000, 12, 128) in f32
+             and bf16, and full (non-causal) attention; then the serve
+             and ragged shapes again with scores of standard deviation
+             ~300 (integer q and k, so every score is exact in float32 on
+             both sides), the scale the reference's initializer gives at
+             full width, where every softmax saturates and an error in
+             the running max or its rescale would show; 2e-5 for f32,
+             2e-2 for bf16, as tests/test_kernels.py;
+7. serve     Qwen2-1.5B at its published width (28 layers, d_model 1536,
+             vocab 151936; float32 params drawn on the card from seed 0,
+             the attention projections rescaled to their true fan-in,
+             bf16 compute) served through ``Scheduler``: a wave of eight
+             1,024-token prompts and a wave of eight 600-1,000-token
+             prompts left-padded to 1,000 (off the 128 grid), 32 new
+             tokens each; every prefill's attention through the flash
+             kernel (28 launches a prefill), the flash prefill against
+             the plain attention path (5e-2 of the largest logit, the
+             bound of tests/test_decode_consistency.py), the last decode
+             step against a full forward, the first wave bitwise
+             repeatable, every logit finite; prefill and decode seconds a
+             wave, decode tokens/s and peak device memory; and one decode
+             step's card time against its wall time (torch.profiler);
+8. ml        the bdml island: a standing infer over one-minute windows of
+             the ICU waveform feed (a 1,048,576-row ring, 20 batches),
+             each tick's score bitwise the port's direct registry.forward
+             on the same rows, one wave a tick; the island runs the
+             reduced config with plain attention, as the reference does,
+             so this phase launches no kernel;
+9. kernels   each kernel's time (CUDA events over a CUDA graph of
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
              launches on its path (phases 3-4 for quant_cast, phase 5 for
-             the streaming kernels); for join_bounds also the time its
-             chains of dependent loads set, from a lone key's levels;
+             the streaming kernels, phase 7 for flash attention); for
+             join_bounds also the time its chains of dependent loads set,
+             from a lone key's levels;
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
@@ -79,8 +111,19 @@ KV_LAYERS, KV_LEAF = 28, (8, 4096, 2, 128)     # configs/qwen2_1_5b.py cache
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                          # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12                          # f64 outside the tensor cores
+BF16_OPS_PER_S = 989e12                        # bf16 tensor cores, dense
 REPLACES = "src/repro/kernels/quant_cast/quant_cast.py"
 STREAM_REPLACES = "src/repro/stream/kernels.py"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py"
+
+# serving Qwen2-1.5B at full width (configs/qwen2_1_5b.py): two waves of
+# eight requests, the second left-padded to a length off the 128 grid
+SERVE = dict(max_batch=8, cache_len=1088, max_new_tokens=32)
+WAVE_A_LEN, WAVE_B_LENS = 1024, (600, 1000)
+SERVE_SHAPE = (8, WAVE_A_LEN, 12, 2, 128)      # B, S, Hq, Hkv, Dh
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
+LOGIT_TOL = 5e-2                    # tests/test_decode_consistency.py
+ML_BATCHES = 20
 
 # the streaming island at the size of a real ICU feed: MIMIC II waveforms
 # at 125 Hz, one-minute batches (7,500 rows), a 2.3-hour ring
@@ -145,14 +188,15 @@ def _inputs(shape, seed: int) -> np.ndarray:
 # -- 1. build --------------------------------------------------------------
 def build() -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.quant_cast import quant_cast as k
     from repro_torch.kernels.stream import stream as sk
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for lib in [pool.submit(k.load), pool.submit(sk.load)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for lib in [pool.submit(m.load) for m in (k, sk, fk)]:
             lib.result()
     seconds = time.perf_counter() - t0
-    for name in ("quant_cast", "stream"):
+    for name in ("quant_cast", "stream", "flash_attention"):
         ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(name,
                                                             "").splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -595,19 +639,22 @@ def _export_share(spans, query: str) -> dict:
             "export_s": export, "export_share": export / total}
 
 
-def _device_times(bd) -> dict:
-    """Card time of one join execution, by kernel and copy, from
+def _device_times(fn) -> dict:
+    """Card time of one call of ``fn``, by kernel and copy, from
     torch.profiler: only the events that ran on the card (a host op's
     self device time repeats its kernels'), less the profiler's own
-    activity-buffer requests."""
+    activity-buffer requests; with the call's wall time and the number
+    of device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        bd.query(JOIN)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    rows = {}
+        wall = time.perf_counter() - t0
+    rows, events = {}, 0
     for ev in prof.key_averages():
         if (ev.device_type == DeviceType.CPU
                 or ev.key.startswith("Activity Buffer")):
@@ -615,10 +662,12 @@ def _device_times(bd) -> dict:
         us = ev.self_device_time_total
         if us > 0:
             rows[ev.key] = rows.get(ev.key, 0.0) + us
+            events += ev.count
     total = sum(rows.values())
     copy = sum(us for key, us in rows.items() if "HtoD" in key)
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_us": total, "htod_us": copy,
+    return {"device_us": total, "wall_us": wall * 1e6,
+            "device_events": events, "htod_us": copy,
             "htod_share": copy / total if total else None,
             "top": [[key[:80], us] for key, us in top]}
 
@@ -642,7 +691,8 @@ def paired_feed(bd) -> dict:
     emit({"phase": "stream", "feed": "paired", "wall_s": wall,
           "ticks": PAIRED_FEED["num_batches"] + 1,
           "queries": {"abp_ecg_join": cq.metrics()},
-          "join_tick_host": share, "join_card": _device_times(bd)})
+          "join_tick_host": share,
+          "join_card": _device_times(lambda: bd.query(JOIN))})
     check(cq.executions > 0 and cq.last_value is not None,
           "the join never ran")
     value = cq.last_value
@@ -727,7 +777,300 @@ def join_checks(bd, value) -> None:
           "pairs": int(cols["dt"].shape[0])})
 
 
-# -- 6. kernel times --------------------------------------------------------------
+# -- 6. flash attention against its plain version ----------------------------------
+def _qkv(b, s, t, hq, hkv, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+        for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+
+
+def _qkv_wide(b, s, t, hq, hkv, dh, dtype, seed):
+    """q and k integer-valued in [-30, 30], v standard normal.  Every q.k
+    is an integer below 2**24, so the kernel's scores and the plain
+    version's are the same float32 numbers, and the scaled scores have a
+    standard deviation of ~300: each softmax row is near one-hot."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.integers(-30, 31, (b, s, hq, dh)),
+              rng.integers(-30, 31, (b, t, hkv, dh)),
+              rng.standard_normal((b, t, hkv, dh)))
+    return [torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+            for x in arrays]
+
+
+def flash_parity() -> float:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ref
+    b, s, hq, hkv, dh = SERVE_SHAPE
+    cases = [((bb, ss, ss, h, hk, d), dt, True)
+             for bb, ss, h, hk, d in [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
+                                      (1, 512, 8, 2, 128), (2, 128, 6, 3, 32),
+                                      (1, 384, 2, 1, 128)]
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((b, s, s, hq, hkv, dh), torch.float32, True),
+              ((b, s, s, hq, hkv, dh), torch.bfloat16, True),
+              ((1, 1000, 1000, hq, hkv, dh), torch.float32, True),
+              ((1, 1000, 1000, hq, hkv, dh), torch.bfloat16, True),
+              ((1, 128, 128, 2, 2, 64), torch.float32, False),
+              ((b, s, s, hq, hkv, dh), torch.bfloat16, False)]
+    cases = [c + (False,) for c in cases]
+    cases += [((b, s, s, hq, hkv, dh), dt, causal, True)
+              for dt in (torch.float32, torch.bfloat16)
+              for causal in (True, False)]
+    cases += [((1, 1000, 1000, hq, hkv, dh), dt, True, True)
+              for dt in (torch.float32, torch.bfloat16)]
+    worst = 0.0
+    for i, (shape, dtype, causal, wide) in enumerate(cases):
+        q, k, v = (_qkv_wide if wide else _qkv)(*shape, dtype, 60 + i)
+        got = fk.flash_attention_4d(q, k, v, causal)
+        want = ref.gqa_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash_attention differs from the plain version at {shape} "
+              f"{dtype} causal={causal} wide={wide}: max |err| {err}")
+        worst = max(worst, err)
+        emit({"phase": "parity", "kernel": "flash_attention",
+              "case": list(shape), "dtype": str(dtype), "causal": causal,
+              "scores": "std~300" if wide else "unit", "max_abs_err": err,
+              "tol": tol})
+    return worst
+
+
+# -- 7. serving Qwen2-1.5B at full width --------------------------------------------
+def _serve_prompts():
+    """Wave A: eight 1,024-token prompts (numpy seed 0); wave B: eight of
+    600 to 1,000 tokens (seed 1), the longest 1,000, off the 128 grid."""
+    from repro_torch.serve.engine import Request
+    vocab = 151936
+    rng = np.random.default_rng(SEED)
+    a = [rng.integers(0, vocab, WAVE_A_LEN).astype(np.int32)
+         for _ in range(SERVE["max_batch"])]
+    rng = np.random.default_rng(SEED + 1)
+    lens = list(rng.integers(WAVE_B_LENS[0], WAVE_B_LENS[1],
+                             SERVE["max_batch"] - 1)) + [WAVE_B_LENS[1]]
+    bw = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    wave = lambda ps, r0: [Request(r0 + i, p, SERVE["max_new_tokens"])  # noqa: E731
+                           for i, p in enumerate(ps)]
+    return wave(a, 0), wave(bw, len(a))
+
+
+def _padded(requests) -> np.ndarray:
+    plen = max(len(r.prompt) for r in requests)
+    out = np.zeros((len(requests), plen), np.int32)
+    for i, r in enumerate(requests):
+        out[i, -len(r.prompt):] = r.prompt
+    return out
+
+
+def _rel(want: torch.Tensor, got: torch.Tensor) -> float:
+    return float((want - got).abs().max() / want.abs().max())
+
+
+def _decode_vs_forward(session, wave, completions) -> float:
+    """The session's last decode step against a full forward over the
+    padded prompts and the tokens generated before it."""
+    from repro_torch.models import registry
+    toks = np.stack([c.tokens for c in completions])
+    seq = np.concatenate([_padded(wave), toks[:, :-1]], axis=1)
+    logits, _ = registry.forward(session.params, {
+        "tokens": torch.from_numpy(seq).cuda()}, session.cfg)
+    want = logits[:, -1]
+    check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
+    return _rel(want, session.last_logits)
+
+
+def _draw_params(cfg):
+    from repro_torch.models import registry
+    from repro_torch.sharding import logical as L
+    return L.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         registry.param_specs(cfg), "cuda")
+
+
+def _unit_scale_attention(params) -> None:
+    """Rescale the attention projections, in place, to the fan-in of the
+    dimensions they contract.  The reference's ``_init_one`` takes the
+    fan-in from a weight's second-to-last dimension, which for the
+    (d_model, heads, head_dim) projections is the head count (12 or 2),
+    not the 1,536 inputs they sum over: at full width q.k scores come out
+    with a standard deviation of ~300, every softmax saturates, and the
+    bf16 rounding of the scores (the plain path computes them in bf16)
+    decides which key wins, so the two attention paths part by more than
+    any logit bound.  After this, scores have unit scale, as in a trained
+    model; the flash parity phase holds the kernel at the saturated
+    scale."""
+    m = params["blocks"]["sub0"]["mixer"]           # stacked: (L, ...)
+    for name in ("wq", "wk", "wv"):                  # (L, d, heads, dh)
+        m[name] *= (m[name].shape[-2] / m[name].shape[1]) ** 0.5
+    wo = m["wo"]                                     # (L, heads, dh, d)
+    wo *= (wo.shape[-2] / (wo.shape[1] * wo.shape[2])) ** 0.5
+
+
+def _flash_vs_plain(session, prompts) -> float:
+    """Last-token prefill logits of the flash session against the same
+    params through the plain attention path, max |diff| / max |logit|."""
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeSession
+    flash = session.prefill(prompts)[0][:, -1]
+    plain = ServeSession(registry.get_config("qwen2-1.5b"), session.params,
+                         session.scfg).prefill(prompts)[0][:, -1]
+    check(bool(torch.isfinite(flash).all() and torch.isfinite(plain).all()),
+          "prefill: non-finite logits")
+    return _rel(plain, flash)
+
+
+def serve_phase() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import (Request, Scheduler, ServeConfig,
+                                          ServeSession)
+    from repro_torch._tree import tree_leaves
+    cfg = registry.get_config("qwen2-1.5b", attn_impl="flash")
+    check((cfg.num_layers, cfg.d_model, cfg.vocab_size) == (28, 1536, 151936),
+          f"not the published width: {cfg}")
+    wave_a, wave_b = _serve_prompts()
+    prompts_a = _padded(wave_a)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw_params(cfg)
+    _unit_scale_attention(params)
+    check(all(t.dtype == torch.float32 and t.is_cuda
+              for t in tree_leaves(params)), "params: f32 on the card")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    session = ServeSession(cfg, params, ServeConfig(**SERVE))
+    del params                      # the session holds what it reads
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "step": "load", "params": n_params,
+          "param_bytes_f32": 4 * n_params,
+          "seconds": time.perf_counter() - t0})
+    # one short wave first: cuBLAS handles and the kernel's first launch
+    session.run_wave([Request(100 + i, r.prompt[:128], 2)
+                      for i, r in enumerate(wave_a)])
+
+    def schedule(waves):
+        sched = Scheduler(session)
+        for wave in waves:
+            for r in wave:
+                sched.submit(r)
+        return sched.run()
+
+    fk.reset_launch_count()                   # the serve path starts here
+    done = schedule([wave_a, wave_b])
+    torch.cuda.synchronize()
+    launches = fk.launches                    # ... and ends here
+    n = SERVE["max_batch"]
+    done_a, done_b = done[:n], done[n:]
+    rel_b = _decode_vs_forward(session, wave_b, done_b)
+    again = schedule([wave_a])
+    torch.cuda.synchronize()
+    rel_a = _decode_vs_forward(session, wave_a, again)
+    repeat = all(np.array_equal(x.tokens, y.tokens)
+                 for x, y in zip(done_a, again))
+    rel_prefill = _flash_vs_plain(session, prompts_a)
+    logits, cache, extras, pos0 = session.prefill(prompts_a)
+    tok = logits[:, -1].argmax(-1).int().cpu().numpy()
+    decode_card = _device_times(
+        lambda: session.decode(tok, cache, pos0, extras))
+    decode_card["busy_share"] = decode_card["device_us"] / decode_card[
+        "wall_us"]
+    del logits, cache
+    torch.cuda.synchronize()
+    waves = {}
+    for name, comps, wave in (("A", done_a, wave_a), ("B", done_b, wave_b)):
+        c = comps[0]
+        new = SERVE["max_new_tokens"] - 1
+        plen = int(_padded(wave).shape[1])
+        waves[name] = {"prompt_len": plen,
+                       "prefill_s": c.prefill_seconds,
+                       "decode_s": c.decode_seconds,
+                       "decode_steps": new,
+                       "decode_tokens_per_s": n * new / c.decode_seconds,
+                       "prefill_tokens_per_s": n * plen / c.prefill_seconds}
+    waves["A_again"] = {"prefill_s": again[0].prefill_seconds,
+                        "decode_s": again[0].decode_seconds}
+    emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "serve_config": SERVE, "waves": waves,
+          "flash_launches": launches, "flash_prefills": 2,
+          "prefill_flash_vs_plain_rel": rel_prefill,
+          "decode_vs_forward_rel": {"A": rel_a, "B": rel_b},
+          "wave_a_repeatable": repeat,
+          "decode_step_card": decode_card,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(launches == cfg.num_layers * 2,
+          f"flash launches {launches} != 28 x 2 prefills")
+    check(rel_prefill <= LOGIT_TOL,
+          f"flash prefill vs plain attention: {rel_prefill}")
+    check(rel_a <= LOGIT_TOL and rel_b <= LOGIT_TOL,
+          f"decode vs forward: {rel_a}, {rel_b}")
+    check(repeat, "wave A is not bitwise repeatable")
+    check(bool(torch.isfinite(session.last_logits).all()),
+          "non-finite logits")
+    check(all(c.tokens.shape == (SERVE["max_new_tokens"],) for c in done),
+          "completions: wrong token counts")
+    emit({"phase": "serve", "checks": "passed"})
+    return {"launches": launches}
+
+
+# -- 8. the bdml island over the ICU feed -------------------------------------------
+def ml_phase() -> None:
+    from repro_torch.core.api import default_deployment
+    from repro_torch.data.mimic import stream_mimic_waveforms
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models import registry
+    from repro_torch.sharding import logical as L
+    from repro_torch.stream import ml
+    bd = default_deployment(stream_engines=1)
+    bd.register_model("lm")
+    cq = bd.register_continuous(
+        f"bdml(infer(window({WAVE}, {MINUTE}), models.lm))", 1,
+        name="lm_score")
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    params = L.init_params(torch.Generator().manual_seed(SEED),
+                           registry.param_specs(cfg), bd.device)
+    s0, flash0 = ml.stats(), fk.launches
+    scored, ticks_s = 0, []
+    t0 = time.perf_counter()
+    for info in stream_mimic_waveforms(bd, batch_rows=MINUTE,
+                                       num_batches=ML_BATCHES,
+                                       capacity=WAVE_FEED["capacity"],
+                                       seed=SEED):
+        torch.cuda.synchronize()
+        ticks_s.append(time.perf_counter() - t0)
+        check(cq.errors == 0, f"lm_score: {cq.last_error}")
+        rows = bd.engines["streamstore0"].get(WAVE).window(MINUTE)
+        vals = rows.attrs["signal"].cpu().numpy().astype(np.float64)
+        toks = ml.quantize(vals, cfg.vocab_size)
+        t = torch.from_numpy(toks[None]).to(bd.device)
+        logits, _ = registry.forward(params, {"tokens": t}, cfg)
+        logp = torch.log_softmax(logits[0, :-1].float(), -1)
+        want = -logp.gather(-1, t[0, 1:, None].long())[..., 0].mean()
+        got = cq.last_value.columns["score"]
+        check(got.shape == (1,) and torch.equal(got[0], want),
+              f"batch {info['batch']}: infer {float(got[0])} != direct "
+              f"{float(want)}")
+        check(bool(torch.isfinite(got).all()), "non-finite score")
+        scored += 1
+        t0 = time.perf_counter()
+    s1 = ml.stats()
+    waves = s1["waves"] - s0["waves"]
+    check(scored == ML_BATCHES and waves == ML_BATCHES,
+          f"ml island: {scored} scored ticks, {waves} waves")
+    check(fk.launches == flash0, "the ml island launched a kernel")
+    emit({"phase": "ml", "ticks": ML_BATCHES, "window_rows": MINUTE,
+          "ring_capacity": WAVE_FEED["capacity"], "waves": waves,
+          "bitwise_ticks": scored, "tick_s": ticks_s,
+          "tick_p50_s": float(np.median(ticks_s)),
+          "query": cq.metrics(),
+          "kernels_launched": 0,
+          "note": ("the island scores with the reduced config and plain "
+                   "attention (attn_impl='reference'), as the reference "
+                   "does: no kernel of the port runs in this phase")})
+    bd.streams.deregister("lm_score")
+
+
+# -- 9. kernel times --------------------------------------------------------------
 def _graph_ms(fns, reps: int = 20) -> float:
     """Mean device time of one call, from CUDA events around replays of a
     CUDA graph that holds ``reps`` passes over ``fns`` (so the host's
@@ -915,6 +1258,60 @@ def stream_kernel_rows(launches: dict, err: dict) -> list:
     return rows
 
 
+def flash_kernel_rows(launches: int, err: float) -> list:
+    """flash_attention at the serve shape in bf16 (causal, two input sets
+    of 33 MB rotating): the kernel, its plain version, and
+    scaled_dot_product_attention (checked against the plain version
+    first; timed only, the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ref
+    b, s, hq, hkv, dh = SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    sets = {dt: [[torch.randn(shape, generator=gen, device="cuda").to(dt)
+                  for shape in ((b, s, hq, dh), (b, s, hkv, dh),
+                                (b, s, hkv, dh))] for _ in range(2)]
+            for dt in (torch.bfloat16, torch.float32)}
+    bf16 = sets[torch.bfloat16]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    check(torch.allclose(sdpa(*bf16[0]).float(),
+                         ref.gqa_attention(*bf16[0]).float(),
+                         atol=2e-2, rtol=2e-2),
+          "scaled_dot_product_attention differs from the plain version")
+    ms = _graph_ms([lambda x=x: fk.flash_attention_4d(*x, True)
+                    for x in bf16])
+    ms_f32 = _graph_ms([lambda x=x: fk.flash_attention_4d(*x, True)
+                        for x in sets[torch.float32]])
+    plain_ms = _graph_ms([lambda x=x: ref.gqa_attention(*x, causal=True)
+                          for x in bf16], reps=4)
+    library_ms = _graph_ms([lambda x=x: sdpa(*x) for x in bf16])
+    # read q, k and v once and write o, in bf16; QK^T and P.V over the
+    # causal half: 2 x 2 x Dh operations for each of Hq x S(S+1)/2 pairs
+    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+    ops = 4 * b * hq * dh * s * (s + 1) // 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return [{"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+             "replaces": f"{FLASH_REPLACES}:31",
+             "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "library_ms": library_ms,
+             "library": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+             "shape": list(SERVE_SHAPE), "dtype": "bfloat16",
+             "bytes": nbytes, "operations": ops, "ms_f32": ms_f32,
+             "note": ("float32 math on the CUDA cores (67 TFLOP/s peak) "
+                      "against a bound at the bf16 tensor-core rate")}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -973,8 +1370,15 @@ def main() -> int:
     del join, bds
     torch.cuda.empty_cache()
 
+    flash_err = flash_parity()
+    serve = serve_phase()                     # resets and reads its counts
+    torch.cuda.empty_cache()
+    ml_phase()
+    torch.cuda.empty_cache()
+
     rows = quant_kernel_rows(launches, err)
     rows += stream_kernel_rows(stream_launches, stream_err)
+    rows += flash_kernel_rows(serve["launches"], flash_err)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -7,17 +7,16 @@ deployment, mirroring the docker-compose topology of the v0.1 release
 
 Every deployment names its ``device``: the engines keep their tensors
 there, the streams materialize their window views there, and the quant
-cast and the compiled streaming path run their CUDA kernels there.  The
-ml island and durable streams are not ported yet (ROADMAP.md "ML slice",
-"Durability slice").
+cast and the compiled streaming path run their CUDA kernels there, and
+the ml island runs its models there.  Durable streams are not ported yet
+(ROADMAP.md "Durability slice").
 """
 from __future__ import annotations
 
 import warnings
 from typing import Dict, Optional
 
-import torch
-
+from repro_torch import _device
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.engines import (DenseHBMEngine, Engine,
                                       HostStoreEngine, KVStoreEngine,
@@ -32,9 +31,9 @@ _DURABILITY_SLICE = ("durable streams are not ported yet: ROADMAP.md "
 
 
 class BigDawg:
-    def __init__(self, device="cuda",
+    def __init__(self, device=None,
                  planner_config: Optional[PlannerConfig] = None) -> None:
-        self.device = torch.device(device)
+        self.device = _device.resolve(device, "BigDawg()")
         self.catalog = Catalog()
         self.engines: Dict[str, Engine] = {}
         self.monitor = Monitor()
@@ -63,6 +62,14 @@ class BigDawg:
         d = self.catalog.engine_by_name(dst)
         assert s is not None and d is not None, (src, dst)
         self.catalog.add_cast(s.eid, d.eid, method)
+
+    def _ensure_cast(self, src: str, dst: str, method: str) -> None:
+        """register_cast, but idempotent (the ensure_* growers re-run)."""
+        s = self.catalog.engine_by_name(src)
+        d = self.catalog.engine_by_name(dst)
+        if not any(c.method == method for c in
+                   self.catalog.casts_between(s.eid, d.eid)):
+            self.register_cast(src, dst, method)
 
     def register_object(self, engine_name: str, name: str, obj,
                         fields=()) -> None:
@@ -96,6 +103,8 @@ class BigDawg:
             for host in ("hoststore0", "hoststore1"):
                 if host in self.engines:
                     self.register_cast(ename, host, "staged")
+            for ml in [e for e in self.engines if e.startswith("mlhost")]:
+                self._ensure_cast(ename, ml, "staged")
         # only the numbered pool is managed here; a user-added engine
         # like "streamstore_backup" is left alone (and must not break
         # the numeric sort below)
@@ -104,13 +113,8 @@ class BigDawg:
                           and e[len("streamstore"):].isdigit()]
         for src in stream_engines:
             for dst in stream_engines:
-                if src == dst:
-                    continue
-                s = self.catalog.engine_by_name(src)
-                d = self.catalog.engine_by_name(dst)
-                if not any(c.method == "stream" for c in
-                           self.catalog.casts_between(s.eid, d.eid)):
-                    self.register_cast(src, dst, "stream")
+                if src != dst:
+                    self._ensure_cast(src, dst, "stream")
         return sorted(stream_engines,
                       key=lambda e: int(e[len("streamstore"):]))
 
@@ -248,6 +252,63 @@ class BigDawg:
         return self.streams.rebalance(stream, shard=shard,
                                       to_engine=to_engine)
 
+    # -- ml island (repro_torch.stream.ml) ---------------------------------------
+    def ensure_ml_engines(self, n: int = 1) -> list:
+        """Grow the ml island to ``n`` MLEngines (``mlhost0..mlhost{n-1}``)
+        on the deployment's device, with the standard casts: staged from
+        every StreamEngine (windows migrate in via ``bdcast``), staged
+        into the relational island (score tables migrate out) and binary
+        into the array island.  Idempotent; the ml island is opt-in —
+        ``default_deployment`` does not create it, call this (or
+        ``register_model``, which does) before issuing ``bdml``
+        queries."""
+        from repro_torch.stream.ml import MLEngine
+        names = [f"mlhost{i}" for i in range(max(1, n))]
+        for ename in names:
+            if ename in self.engines:
+                continue
+            self.add_engine(MLEngine(ename, runtime=self.streams,
+                                     engines=self.engines,
+                                     device=self.device))
+            for src in [e for e in self.engines
+                        if e.startswith("streamstore")]:
+                self._ensure_cast(src, ename, "staged")
+            for host in ("hoststore0", "hoststore1"):
+                if host in self.engines:
+                    self._ensure_cast(ename, host, "staged")
+            if "densehbm0" in self.engines:
+                self._ensure_cast(ename, "densehbm0", "binary")
+        return sorted(e for e in self.engines if e.startswith("mlhost"))
+
+    def register_model(self, alias: str, arch: Optional[str] = None,
+                       engine_name: str = "mlhost0", seed: int = 0):
+        """Register a model handle on the ml island so ``bdml`` queries
+        can score stream windows through it:
+
+            bd.register_model("lm")
+            bd.query("bdml(infer(window(vitals.hr, 16), models.lm))")
+
+        ``alias`` picks the registry architecture (``lm``/``moe``/
+        ``rwkv6``/``mamba`` map to reduced-config registry archs; a full
+        registry name also works with an explicit ``alias``).  The
+        catalog object is named ``models.<alias>`` — dotted, so the
+        Planner's signature extractor sees it as a referenced object and
+        pins infer reads to the model's home engine.  Params are drawn
+        from a fixed seed at first use and cached per (arch, seed,
+        device).  Only the dense family runs in this port so far: the
+        others raise ``NotImplementedError`` when first scored."""
+        from repro_torch.stream.ml import MLModel, resolve_arch
+        self.ensure_ml_engines(
+            max(1, int(engine_name[len("mlhost"):]) + 1)
+            if engine_name.startswith("mlhost")
+            and engine_name[len("mlhost"):].isdigit() else 1)
+        handle = MLModel(name=f"models.{alias}",
+                         arch=resolve_arch(arch or alias), seed=seed,
+                         home_engine=engine_name)
+        self.register_object(engine_name, handle.name, handle,
+                             fields=("window", "rows", "score"))
+        return handle
+
     def register_continuous(self, bql: str, every_n_ticks: int = 1,
                             name: Optional[str] = None) -> ContinuousQuery:
         """Register a standing BQL query; it re-executes (lean mode, so
@@ -285,12 +346,7 @@ def default_deployment(device=None,
     ``device`` defaults to ``"cuda"``; without a GPU that raises — pass
     ``device="cpu"`` to run on the CPU, where each kernel's plain PyTorch
     version stands in for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("default_deployment() runs on the GPU and "
-                               "none is available; pass device=\"cpu\" "
-                               "to run on the CPU")
-        device = "cuda"
+    device = _device.resolve(device, "default_deployment()")
     bd = BigDawg(device=device, planner_config=planner_config)
     for engine in (HostStoreEngine("hoststore0", device),
                    HostStoreEngine("hoststore1", device),

@@ -21,7 +21,7 @@ from typing import Any, Deque, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch import _dtypes
+from repro_torch import _device, _dtypes
 from repro_torch.core import datamodel as dm
 
 
@@ -35,9 +35,9 @@ class Engine:
     # op_log ring-buffer capacity; Monitor feeds only read the recent tail
     OP_LOG_LIMIT = 4096
 
-    def __init__(self, name: str, device="cpu") -> None:
+    def __init__(self, name: str, device=None) -> None:
         self.name = name
-        self.device = torch.device(device)
+        self.device = _device.resolve(device, f"{type(self).__name__}()")
         self._objects: Dict[str, Any] = {}
         self.op_log: Deque[Tuple[str, float]] = \
             collections.deque(maxlen=self.OP_LOG_LIMIT)  # (op, seconds)

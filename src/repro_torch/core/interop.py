@@ -25,7 +25,7 @@ from repro_torch import _dtypes
 from repro_torch.core import datamodel as dm
 
 
-def from_numpy(desc: Any, device="cpu") -> Any:
+def from_numpy(desc: Any, device) -> Any:
     """A description -> the port's object, its tensors on ``device``."""
     if isinstance(desc, np.ndarray):
         return torch.from_numpy(np.array(desc, order="C")).to(device)

@@ -70,6 +70,10 @@ class Monitor:
         # (backend, compiles, cache hits, fallbacks + reasons), one
         # process-wide dict
         self.jit_stats: Dict[str, Any] = {}
+        # ml-island inference health: the repro_torch.stream.ml.stats()
+        # block (models loaded, waves, windows scored, params-cache hits),
+        # process-wide like the jit stats
+        self.ml_stats: Dict[str, Any] = {}
 
     # -- benchmark API (paper naming) ----------------------------------------
     def add_benchmarks(self, signature: Signature, lean: bool,
@@ -280,6 +284,15 @@ class Monitor:
         with self._lock:
             self.jit_stats = dict(stats)
 
+    def observe_ml(self, stats: Dict[str, Any]) -> None:
+        """Record the ml island's inference counters (the
+        ``repro_torch.stream.ml.stats()`` block: models loaded, waves,
+        standing infer executions, windows scored, params-cache hits).
+        StreamRuntime.tick feeds this once per tick next to the jit
+        stats."""
+        with self._lock:
+            self.ml_stats = dict(stats)
+
     @staticmethod
     def shard_load(stats: Dict[str, float]) -> float:
         """One shard's *lifetime* ingest load: appended rows, weighted up
@@ -387,8 +400,7 @@ class Monitor:
         Monitor lock.  The one sanctioned way to *read* this state from
         another thread while the background MonitoringTask and the
         Executor keep mutating the live dicts (iterating those directly
-        races).  The durability and ml islands' observers come with
-        their slices."""
+        races).  The durability observers come with their slice."""
         with self._lock:
             return {
                 "engine_ewma": dict(self.engine_ewma),
@@ -402,6 +414,7 @@ class Monitor:
                 "ingest_stats": {k: dict(v)
                                  for k, v in self.ingest_stats.items()},
                 "jit_stats": dict(self.jit_stats),
+                "ml_stats": dict(self.ml_stats),
                 "shard_stats": {
                     name: {i: dict(st) for i, st in shards.items()}
                     for name, shards in self.shard_stats.items()},

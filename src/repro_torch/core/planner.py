@@ -256,6 +256,17 @@ class Planner:
                 pinned = [m for m in members if m in homes]
                 if pinned:
                     members = pinned
+        if node.island == "ml" and refs:
+            # an infer node references both the model handle (held only
+            # by MLEngines) and the stream it scores (held only by
+            # StreamEngines), so the generic all-refs filter above never
+            # narrows it — pin to the ml engines holding ANY referenced
+            # object, i.e. the model's home, instead of enumerating one
+            # plan per island member
+            holding = [m for m in members
+                       if any(self.engines[m].has(r) for r in refs)]
+            if holding:
+                members = holding
         # straggler avoidance (Monitor feedback loop, DESIGN.md §5)
         slow = set(self.monitor.stragglers())
         fast = [m for m in members if m not in slow]

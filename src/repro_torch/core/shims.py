@@ -10,7 +10,8 @@ to *parse and execute* the island language over the engine's stored objects:
   streaming island  — functional ops over ring-buffer streams (append/
                       window/aggregate/rate/snapshot),
                       repro_torch.stream.shim
-  ml island         — not ported yet (ROADMAP.md "ML slice")
+  ml island         — infer(window, model) scores stream windows through
+                      the model registry, repro_torch.stream.ml
 """
 from __future__ import annotations
 
@@ -334,6 +335,6 @@ def execute(island: str, engine: Engine, query: str):
         from repro_torch.stream.shim import execute_stream
         return execute_stream(engine, query)
     if island == "ml":
-        raise NotImplementedError(
-            "the ml island is not ported yet: ROADMAP.md \"ML slice\"")
+        from repro_torch.stream.ml import execute_ml
+        return execute_ml(engine, query)
     raise ValueError(f"unknown island {island}")

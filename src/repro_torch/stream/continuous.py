@@ -14,9 +14,9 @@ ring-buffer backpressure since the previous execution, and whether the
 query fell behind the arrival cadence — are kept per query and fed to the
 Monitor (``observe_stream``), surfacing in ``StreamRuntime.status()``.
 
-The durability cadence and the ml island's counters of the reference's
-tick come with their slices (ROADMAP.md "Durability slice", "ML slice"),
-and the tick listeners with the serving front door that reads them.
+The durability cadence of the reference's tick comes with its slice
+(ROADMAP.md "Durability slice"), and the tick listeners with the serving
+front door that reads them.
 """
 from __future__ import annotations
 
@@ -371,6 +371,14 @@ class StreamRuntime:
         # Monitor's view tracks the jit lane's health live
         from repro_torch.stream import compile as query_compile
         self.monitor.observe_jit(query_compile.stats())
+        # ml-island inference counters (waves, windows scored, params
+        # cache) — same cadence and shape as the jit block.
+        # sys.modules, not an import: the ml module pulls in the model
+        # registry, a cost deployments without an ml engine never pay
+        import sys
+        query_ml = sys.modules.get("repro_torch.stream.ml")
+        if query_ml is not None:
+            self.monitor.observe_ml(query_ml.stats())
         return ran
 
     def run_ticks(self, n: int) -> List[List[Tuple[str, Any]]]:

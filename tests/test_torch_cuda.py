@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (quant_cast and the streaming kernels) on the
-card, against their plain PyTorch versions.  Marked ``cuda``: without a CUDA device each test skips, since a
+"""The port's CUDA kernels (quant_cast, the streaming kernels and flash
+attention) on the card, against their plain PyTorch versions.  Marked ``cuda``: without a CUDA device each test skips, since a
 CUDA kernel has no CPU mode.  This file imports no JAX, so it runs on the
 GPU host:
 
@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as fk
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.quant_cast import ops, ref
 from repro_torch.kernels.quant_cast import quant_cast as k
 from repro_torch.kernels.stream import ops as sops
@@ -134,3 +137,89 @@ def test_stream_ops_route_cuda_tensors_to_the_kernels(card):
     assert sk.launch_counts() == {
         "window_minmax": before["window_minmax"] + 1,
         "join_bounds": before["join_bounds"] + 1}
+
+
+# -- flash attention ----------------------------------------------------------------
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+
+
+def _qkv(card, b, s, t, hq, hkv, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype)
+        for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh", [
+    (1, 128, 128, 4, 4, 64), (2, 256, 256, 4, 2, 64),
+    (1, 512, 512, 8, 2, 128), (2, 128, 128, 6, 3, 32),
+    (1, 384, 384, 2, 1, 128), (1, 100, 100, 2, 1, 16),
+    (1, 1000, 1000, 12, 2, 128), (2, 200, 72, 4, 2, 64),
+    (1, 72, 200, 4, 2, 32)])
+def test_flash_attention_matches_plain_version_on_card(card, b, s, t, hq,
+                                                      hkv, dh, dtype,
+                                                      causal):
+    q, k, v = _qkv(card, b, s, t, hq, hkv, dh, dtype, s + t + dh)
+    got = fk.flash_attention_4d(q, k, v, causal)
+    want = fref.gqa_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh", [
+    (2, 256, 256, 12, 2, 128), (1, 1000, 1000, 12, 2, 128),
+    (2, 200, 72, 4, 2, 64)])
+def test_flash_attention_holds_at_saturated_scores_on_card(card, b, s, t, hq,
+                                                          hkv, dh, dtype,
+                                                          causal):
+    """Integer q and k in [-30, 30]: every q.k is exact in float32 on both
+    sides and the scaled scores have a standard deviation of ~300, so each
+    softmax row is near one-hot and an error in the running max or its
+    rescale shows at the usual tolerance."""
+    rng = np.random.default_rng(s + t + dh)
+    q, k, v = [torch.from_numpy(x.astype(np.float32)).to(card, dtype)
+               for x in (rng.integers(-30, 31, (b, s, hq, dh)),
+                         rng.integers(-30, 31, (b, t, hkv, dh)),
+                         rng.standard_normal((b, t, hkv, dh)))]
+    got = fk.flash_attention_4d(q, k, v, causal)
+    want = fref.gqa_attention(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(card, 1, 64, 64, 4, 2, 64, torch.float32, 1)
+    with pytest.raises(TypeError, match="dtype"):
+        fk.flash_attention_4d(q.half(), k.half(), v.half(), True)
+    with pytest.raises(TypeError, match="dtype"):
+        fk.flash_attention_4d(q, k.bfloat16(), v, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_4d(q.transpose(1, 2), k, v, True)
+    odd = _qkv(card, 1, 64, 64, 4, 2, 48, torch.float32, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention_4d(*odd, True)
+    with pytest.raises(ValueError, match="multiple"):
+        fk.flash_attention_4d(*_qkv(card, 1, 64, 64, 4, 3, 64,
+                                    torch.float32, 3), True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fk.flash_attention_4d(q.cpu(), k, v, True)
+
+
+def test_flash_ops_route_cuda_tensors_to_the_kernel(card):
+    q, k, v = _qkv(card, 2, 96, 96, 4, 2, 64, torch.bfloat16, 4)
+    before = fk.launches
+    got = fops.flash_attention(q, k, v, causal=True)
+    assert fk.launches == before + 1
+    fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert fk.launches == before + 1
+    fk.reset_launch_count()
+    assert fk.launches == 0
+    torch.testing.assert_close(got.float(), fref.gqa_attention(
+        q, k, v, causal=True).float(), atol=2e-2, rtol=2e-2)

@@ -7,10 +7,13 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import api
+from repro_torch.core import api, engines, interop
+from repro_torch.stream.engine import StreamEngine
+from repro_torch.stream.ml import MLEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -53,10 +56,20 @@ STREAM_MODULES = ["repro_torch.stream", "repro_torch.stream.spec",
                   "repro_torch.kernels.stream.stream"]
 
 
-@pytest.mark.parametrize("module", STREAM_MODULES)
+ML_MODULES = ["repro_torch.models.config", "repro_torch.models.layers",
+              "repro_torch.models.attention", "repro_torch.models.lm",
+              "repro_torch.models.registry", "repro_torch.models.convert",
+              "repro_torch.sharding.logical", "repro_torch.serve.engine",
+              "repro_torch.stream.ml", "repro_torch.configs.qwen2_1_5b",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.kernels.flash_attention.flash_attention"]
+
+
+@pytest.mark.parametrize("module", STREAM_MODULES + ML_MODULES)
 def test_streaming_modules_load_no_jax(module):
-    """Each module of the streaming slice, imported alone in a fresh
-    interpreter, loads neither jax nor the reference package."""
+    """Each module of the streaming and ML slices, imported alone in a
+    fresh interpreter, loads neither jax nor the reference package."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -91,3 +104,26 @@ def test_default_deployment_raises_without_cuda(monkeypatch):
     bd = api.default_deployment(device="cpu")
     assert bd.device == torch.device("cpu")
     assert {e.device for e in bd.engines.values()} == {torch.device("cpu")}
+
+
+@pytest.mark.parametrize("cls", [engines.HostStoreEngine,
+                                 engines.DenseHBMEngine,
+                                 engines.KVStoreEngine,
+                                 engines.ReplicatedEngine, StreamEngine,
+                                 MLEngine])
+def test_engines_built_alone_run_on_the_card(monkeypatch, cls):
+    """An engine built without a deployment defaults to the GPU too: with
+    none it raises as default_deployment does, and "cpu" is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cls("e0")
+    assert cls("e0", device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert cls("e0").device == torch.device("cuda")
+
+
+def test_interop_from_numpy_names_its_device():
+    with pytest.raises(TypeError, match="device"):
+        interop.from_numpy({"kind": "table", "columns": {}})
+    t = interop.from_numpy(np.arange(3), "cpu")
+    assert t.device == torch.device("cpu") and t.dtype == torch.int64

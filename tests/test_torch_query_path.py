@@ -262,7 +262,7 @@ def test_tensorstore_compressed_moments():
     jstore.register_train_state("lm", _to_jax(state))
     bd = default_deployment(device="cpu")
     store = TensorPolystore(bd, PlacementPolicy(moments="compressed"))
-    store.register_train_state("lm", from_numpy(state))
+    store.register_train_state("lm", from_numpy(state, "cpu"))
     assert_same(jax_desc(jbd.engines["kvstore0"].get("lm/opt/m")),
                 to_numpy(bd.engines["kvstore0"].get("lm/opt/m")))
     assert_same(jax_desc(jstore.fetch_train_state("lm")),
@@ -301,13 +301,19 @@ def test_tensorstore_int8_kv_pages(writer):
 
 
 def test_later_slices_raise_not_implemented(pair):
-    """The ml island, and the streaming island's durable streams (the
-    shim's ``replay`` and ``recover_stream``), come with later slices."""
+    """The streaming island's durable streams (the shim's ``replay`` and
+    ``recover_stream``) come with a later slice; the ml island, ported
+    since, dispatches to its own shim (which takes ``infer`` on an
+    MLEngine only)."""
     from repro_torch.core import shims
     from repro_torch.core.migrator import reshard
+    from repro_torch.stream.ml import MLException
     _, bd = pair
-    with pytest.raises(NotImplementedError, match="ML slice"):
+    with pytest.raises(ValueError, match="unsupported ml op"):
         shims.execute("ml", bd.engines["densehbm0"], "x")
+    with pytest.raises(MLException, match="need an MLEngine"):
+        shims.execute("ml", bd.engines["densehbm0"],
+                      "infer(window(s, 4), models.lm)")
     with pytest.raises(NotImplementedError, match="Durability slice"):
         shims.execute("streaming", bd.engines["streamstore0"],
                       "replay(any.stream)")
