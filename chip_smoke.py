@@ -8,7 +8,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them.  It prints one JSON object per line:
 
 1. build     builds the CUDA kernels from the sources in the checkout,
-             one nvcc for each of the three libraries, all started
+             one nvcc for each of the five libraries, all started
              together;
 2. parity    holds each kernel against its plain PyTorch version on the
              card, bitwise: quant_cast on small shapes, an all-zero
@@ -60,7 +60,15 @@ without them.  It prints one JSON object per line:
              full width, where every softmax saturates and an error in
              the running max or its rescale would show; 2e-5 for f32,
              2e-2 for bf16, as tests/test_kernels.py;
-7. serve     Qwen2-1.5B at its published width (28 layers, d_model 1536,
+7. scans     rwkv6_scan and mamba_scan against their plain versions on
+             the card: the shapes of tests/test_kernels.py with and
+             without a carried state, ragged S (1,000) and S = 1, and the
+             serve shapes (rwkv (8, 1024, 64, 64) f32 at RWKV6-7B's
+             full-width decays, where the TPU kernel's chunked form
+             underflows, and at decays near 1 and near 0; mamba (8, 1024,
+             8192, 16) in bf16 and f32); 5e-4 and 5e-5, a bf16 y to one
+             bf16 rounding;
+8. serve     Qwen2-1.5B at its published width (28 layers, d_model 1536,
              vocab 151936; float32 params drawn on the card from seed 0,
              the attention projections rescaled to their true fan-in,
              bf16 compute) served through ``Scheduler``: a wave of eight
@@ -74,24 +82,41 @@ without them.  It prints one JSON object per line:
              repeatable, every logit finite; prefill and decode seconds a
              wave, decode tokens/s and peak device memory; and one decode
              step's card time against its wall time (torch.profiler);
-8. ml        the bdml island: a standing infer over one-minute windows of
-             the ICU waveform feed (a 1,048,576-row ring, 20 batches),
-             each tick's score bitwise the port's direct registry.forward
-             on the same rows, one wave a tick; the island runs the
-             reduced config with plain attention, as the reference does,
-             so this phase launches no kernel;
-9. kernels   each kernel's time (CUDA events over a CUDA graph of
+9. families  RWKV6-7B at full width (32 layers, d_model 4096, vocab
+             65536) and Jamba-v0.1 at full width cut to one period of 8
+             layers (13.3 B params), bf16 params drawn on the card leaf by
+             leaf from seed 0 and calmed (``_calm_weights``: the
+             recurrent mixers' output projections at a tenth, the MoE
+             routers at zero, attention at its true fan-in),
+             attn_impl="flash", served
+             through ``Scheduler`` (RWKV6: waves A and B as phase 8's;
+             Jamba: wave A), 16 new tokens each: each scan launched on its
+             path (and flash attention in Jamba's), the prefill through
+             the kernels against the plain path's prefill and the last
+             decode step against a full forward through the plain path,
+             5e-2 of the largest logit, row by row; prefill and decode
+             seconds, decode tokens/s and peak device memory;
+10. ml       the bdml island: standing infers of the lm and moe aliases
+             over one-minute windows of the ICU waveform feed (a
+             1,048,576-row ring, 20 batches) and of the rwkv6 and mamba
+             aliases over ten-second windows every fifth tick, each
+             score bitwise the port's direct registry.forward on the same
+             rows, one wave a tick; the island runs the reduced configs
+             with plain attention and scans, as the reference does, so
+             this phase launches no kernel;
+11. kernels  each kernel's time (CUDA events over a CUDA graph of
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
              launches on its path (phases 3-4 for quant_cast, phase 5 for
-             the streaming kernels, phase 7 for flash attention); for
-             join_bounds also the time its chains of dependent loads set,
-             from a lone key's levels;
+             the streaming kernels, phases 8 and 9 for flash attention,
+             phase 9 for the scans); for join_bounds also the time its
+             chains of dependent loads set, from a lone key's levels;
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -115,6 +140,8 @@ BF16_OPS_PER_S = 989e12                        # bf16 tensor cores, dense
 REPLACES = "src/repro/kernels/quant_cast/quant_cast.py"
 STREAM_REPLACES = "src/repro/stream/kernels.py"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py"
+WKV_REPLACES = "src/repro/kernels/rwkv6_scan/rwkv6_scan.py"
+SCAN_REPLACES = "src/repro/kernels/mamba_scan/mamba_scan.py"
 
 # serving Qwen2-1.5B at full width (configs/qwen2_1_5b.py): two waves of
 # eight requests, the second left-padded to a length off the 128 grid
@@ -124,6 +151,18 @@ SERVE_SHAPE = (8, WAVE_A_LEN, 12, 2, 128)      # B, S, Hq, Hkv, Dh
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
 LOGIT_TOL = 5e-2                    # tests/test_decode_consistency.py
 ML_BATCHES = 20
+# the recurrent and hybrid families served at full width: RWKV6-7B whole,
+# Jamba-v0.1 cut to one period (8 of its 32 layers: 52 B params do not
+# fit one H100); 16 new tokens a request
+FAMILY_SERVE = dict(max_batch=8, cache_len=1088, max_new_tokens=16)
+JAMBA_LAYERS = 8
+WKV_SHAPE = (8, 1024, 64, 64)                  # B, S, H, D: RWKV6-7B's wave
+SCAN_SHAPE = (8, 1024, 8192, 16)               # B, S, Di, N: Jamba's wave
+SCAN_TOL = {"rwkv6_scan": 5e-4, "mamba_scan": 5e-5}   # test_kernels.py
+# the ml island's recurrent aliases run their plain scans token by token
+# (the reduced configs with plain attention, as the reference's island
+# runs them): ten-second windows, every fifth tick
+ML_SCAN_WINDOW, ML_SCAN_EVERY = 1250, 5
 
 # the streaming island at the size of a real ICU feed: MIMIC II waveforms
 # at 125 Hz, one-minute batches (7,500 rows), a 2.3-hour ring
@@ -189,14 +228,18 @@ def _inputs(shape, seed: int) -> np.ndarray:
 def build() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.quant_cast import quant_cast as k
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
     from repro_torch.kernels.stream import stream as sk
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for lib in [pool.submit(m.load) for m in (k, sk, fk)]:
+    libs = (k, sk, fk, wk, mk)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for lib in [pool.submit(m.load) for m in libs]:
             lib.result()
     seconds = time.perf_counter() - t0
-    for name in ("quant_cast", "stream", "flash_attention"):
+    for name in ("quant_cast", "stream", "flash_attention", "rwkv6_scan",
+                 "mamba_scan"):
         ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(name,
                                                             "").splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -838,6 +881,138 @@ def flash_parity() -> float:
     return worst
 
 
+# -- 7. the scans against their plain versions ---------------------------------------
+def _wkv_inputs(b, s, h, d, decays, seed, carried=True):
+    """r, k, v standard normal; decays uniform in [0.85, 0.999] (the
+    sweep's), as RWKV6-7B's initializer gives them at full width
+    (exp(-exp(0.63 z)): down to ~1e-8, where the TPU kernel's chunked form
+    underflows), or near 1 or near 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, s, h, d)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    z = torch.rand(shape, generator=gen, device="cuda")
+    w = {"sweep": lambda: 0.85 + 0.149 * z,
+         "full_width": lambda: torch.exp(-torch.exp(0.63 * torch.randn(
+             shape, generator=gen, device="cuda"))),
+         "near_1": lambda: 1.0 - 1e-4 * z,
+         "near_0": lambda: 1e-6 * z}[decays]()
+    u = torch.randn((h, d), generator=gen, device="cuda")
+    s0 = (0.3 * torch.randn((b, h, d, d), generator=gen, device="cuda")
+          if carried else None)
+    return r, k, v, w, u, s0
+
+
+def _scan_inputs(b, s, di, n, dtype, seed, carried=True):
+    """u standard normal; dt uniform in [0.001, 0.1] with A in [-2, -0.5]
+    (the sweep's), the inputs cast to ``dtype``; h0 float32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((b, s, di), generator=gen, device="cuda").to(dtype)
+    dt = (0.001 + 0.099 * torch.rand((b, s, di), generator=gen,
+                                     device="cuda")).to(dtype)
+    a = -(0.5 + 1.5 * torch.rand((di, n), generator=gen, device="cuda"))
+    bb, c = (torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    h0 = (0.2 * torch.randn((b, di, n), generator=gen, device="cuda")
+          if carried else None)
+    return u, dt, a, bb, c, h0
+
+
+def _double(*xs):
+    return [None if x is None else x.double() for x in xs]
+
+
+def scan_parity() -> dict:
+    """Each scan against its plain version evaluated in float64 on the
+    same inputs: the shapes of tests/test_kernels.py with and without a
+    carried state, ragged S (1,000) and S = 1, and the serve shapes;
+    rwkv6_scan also at full-width decays and decays near 1 and near 0.
+    Tolerances of tests/test_kernels.py (5e-4, 5e-5); a bf16 y is held to
+    one bf16 rounding of the exact y.  Near-1 decays sum ~1,000
+    undecayed outer products into outputs of magnitude ~1,000, and
+    float32 rounding of such sums reaches ~1e-3 whatever their order
+    (the plain version's own float32 result, printed beside the kernel's,
+    is as far from the exact one): that case is held to 5e-4 of its
+    largest |value|."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ref as mref
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    err = {"rwkv6_scan": 0.0, "mamba_scan": 0.0, "mamba_scan_bf16": 0.0}
+    tol = SCAN_TOL["rwkv6_scan"]
+    b, s, h, d = WKV_SHAPE
+    wkv_cases = [((bb, ss, hh, dd), "sweep", carried)
+                 for bb, ss, hh, dd in [(1, 64, 1, 16), (2, 128, 2, 32),
+                                        (1, 256, 4, 64), (2, 96, 2, 32)]
+                 for carried in (True, False)]
+    wkv_cases += [((2, 1000, h, d), "full_width", True),
+                  ((b, 1, h, d), "full_width", True),
+                  ((b, s, h, d), "full_width", False),
+                  ((b, s, h, d), "full_width", True),
+                  ((2, s, h, d), "near_1", True),
+                  ((2, s, h, d), "near_0", True)]
+    for i, (shape, decays, carried) in enumerate(wkv_cases):
+        r, k, v, w, u, s0 = _wkv_inputs(*shape, decays, 70 + i, carried)
+        s_init = s0 if carried else torch.zeros(
+            (shape[0], shape[2], shape[3], shape[3]), device="cuda")
+        y, sf = wk.wkv6_4d(r, k, v, w, u, s0)
+        want_y, want_s = wref.wkv6(*_double(r, k, v, w, u, s_init))
+        plain_y, _ = wref.wkv6(r, k, v, w, u, s_init)
+        y, sf = y.double(), sf.double()
+        torch.cuda.synchronize()
+        e = max(float((y - want_y).abs().max()),
+                float((sf - want_s).abs().max()))
+        atol = tol * (float(want_y.abs().max()) if decays == "near_1"
+                      else 1.0)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(sf).all())
+              and torch.allclose(y, want_y, atol=atol, rtol=tol)
+              and torch.allclose(sf, want_s, atol=atol, rtol=tol),
+              f"rwkv6_scan differs from the plain version at {shape} "
+              f"{decays} carried={carried}: max |err| {e}")
+        err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
+        emit({"phase": "parity", "kernel": "rwkv6_scan", "case": list(shape),
+              "decays": decays, "w_min": float(w.min()), "carried": carried,
+              "max_abs_err": e, "atol": atol, "rtol": tol,
+              "plain_f32_max_abs_err": float(
+                  (plain_y.double() - want_y).abs().max())})
+
+    tol = SCAN_TOL["mamba_scan"]
+    b, s, di, n = SCAN_SHAPE
+    scan_cases = [((bb, ss, dd, nn), torch.float32, carried)
+                  for bb, ss, dd, nn in [(1, 64, 64, 8), (2, 128, 128, 16),
+                                         (1, 96, 256, 16)]
+                  for carried in (True, False)]
+    scan_cases += [((2, 1000, di, n), dt, True)
+                   for dt in (torch.float32, torch.bfloat16)]
+    scan_cases += [((b, 1, di, n), torch.bfloat16, True)]
+    scan_cases += [((b, s, di, n), dt, True)
+                   for dt in (torch.bfloat16, torch.float32)]
+    for i, (shape, dtype, carried) in enumerate(scan_cases):
+        u, dt, a, bb, c, h0 = _scan_inputs(*shape, dtype, 90 + i, carried)
+        y, hf = mk.selective_scan_3d(u, dt, a, bb, c, h0)
+        check(y.dtype == dtype, f"mamba_scan: y in {y.dtype}, not {dtype}")
+        want_y, want_h = mref.selective_scan(*_double(u, dt, a, bb, c), _double(
+            h0 if carried else torch.zeros((shape[0], shape[2], shape[3]),
+                                           device="cuda"))[0])
+        torch.cuda.synchronize()
+        # a bf16 y against the exact y rounded to bf16
+        want_y = want_y.to(dtype).double()
+        y, hf = y.double(), hf.double()
+        e = max(float((y - want_y).abs().max()),
+                float((hf - want_h).abs().max()))
+        rtol = tol if dtype == torch.float32 else 2 ** -7
+        check(torch.allclose(y, want_y, atol=tol, rtol=rtol)
+              and torch.allclose(hf, want_h, atol=tol, rtol=tol),
+              f"mamba_scan differs from the plain version at {shape} "
+              f"{dtype} carried={carried}: max |err| {e}")
+        key = "mamba_scan" if dtype == torch.float32 else "mamba_scan_bf16"
+        err[key] = max(err[key], e)
+        emit({"phase": "parity", "kernel": "mamba_scan", "case": list(shape),
+              "dtype": str(dtype), "carried": carried, "max_abs_err": e,
+              "tol": tol, "y_rtol": rtol})
+    return err
+
+
 # -- 7. serving Qwen2-1.5B at full width --------------------------------------------
 def _serve_prompts():
     """Wave A: eight 1,024-token prompts (numpy seed 0); wave B: eight of
@@ -868,17 +1043,28 @@ def _rel(want: torch.Tensor, got: torch.Tensor) -> float:
     return float((want - got).abs().max() / want.abs().max())
 
 
-def _decode_vs_forward(session, wave, completions) -> float:
-    """The session's last decode step against a full forward over the
-    padded prompts and the tokens generated before it."""
+def _rel_rows(want: torch.Tensor, got: torch.Tensor) -> list:
+    """Each row's (batch entry's) max |diff| over the largest |logit|."""
+    diff = (want - got).abs().reshape(want.shape[0], -1).amax(-1)
+    return (diff / want.abs().max()).tolist()
+
+
+def _decode_and_forward(session, wave, completions):
+    """(a full forward's last logits, the session's last decode step's)
+    over the padded prompts and the tokens generated before that step."""
     from repro_torch.models import registry
     toks = np.stack([c.tokens for c in completions])
     seq = np.concatenate([_padded(wave), toks[:, :-1]], axis=1)
     logits, _ = registry.forward(session.params, {
         "tokens": torch.from_numpy(seq).cuda()}, session.cfg)
-    want = logits[:, -1]
     check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
-    return _rel(want, session.last_logits)
+    return logits[:, -1], session.last_logits
+
+
+def _decode_vs_forward(session, wave, completions) -> float:
+    """The session's last decode step against a full forward over the
+    padded prompts and the tokens generated before it."""
+    return _rel(*_decode_and_forward(session, wave, completions))
 
 
 def _draw_params(cfg):
@@ -888,7 +1074,7 @@ def _draw_params(cfg):
                          registry.param_specs(cfg), "cuda")
 
 
-def _unit_scale_attention(params) -> None:
+def _unit_scale_attention(params, sub: str = "sub0") -> None:
     """Rescale the attention projections, in place, to the fan-in of the
     dimensions they contract.  The reference's ``_init_one`` takes the
     fan-in from a weight's second-to-last dimension, which for the
@@ -900,24 +1086,25 @@ def _unit_scale_attention(params) -> None:
     any logit bound.  After this, scores have unit scale, as in a trained
     model; the flash parity phase holds the kernel at the saturated
     scale."""
-    m = params["blocks"]["sub0"]["mixer"]           # stacked: (L, ...)
+    m = params["blocks"][sub]["mixer"]              # stacked: (L, ...)
     for name in ("wq", "wk", "wv"):                  # (L, d, heads, dh)
         m[name] *= (m[name].shape[-2] / m[name].shape[1]) ** 0.5
     wo = m["wo"]                                     # (L, heads, dh, d)
     wo *= (wo.shape[-2] / (wo.shape[1] * wo.shape[2])) ** 0.5
 
 
-def _flash_vs_plain(session, prompts) -> float:
-    """Last-token prefill logits of the flash session against the same
-    params through the plain attention path, max |diff| / max |logit|."""
-    from repro_torch.models import registry
+def _flash_vs_plain_rows(session, prompts) -> list:
+    """Last-token prefill logits of the flash session (its kernels)
+    against the same params through the plain path (plain attention and
+    the plain scans), max |diff| / max |logit| for each row."""
     from repro_torch.serve.engine import ServeSession
     flash = session.prefill(prompts)[0][:, -1]
-    plain = ServeSession(registry.get_config("qwen2-1.5b"), session.params,
+    plain_cfg = dataclasses.replace(session.cfg, attn_impl="reference")
+    plain = ServeSession(plain_cfg, session.params,
                          session.scfg).prefill(prompts)[0][:, -1]
     check(bool(torch.isfinite(flash).all() and torch.isfinite(plain).all()),
           "prefill: non-finite logits")
-    return _rel(plain, flash)
+    return _rel_rows(plain, flash)
 
 
 def serve_phase() -> dict:
@@ -967,7 +1154,7 @@ def serve_phase() -> dict:
     rel_a = _decode_vs_forward(session, wave_a, again)
     repeat = all(np.array_equal(x.tokens, y.tokens)
                  for x, y in zip(done_a, again))
-    rel_prefill = _flash_vs_plain(session, prompts_a)
+    rel_prefill = max(_flash_vs_plain_rows(session, prompts_a))
     logits, cache, extras, pos0 = session.prefill(prompts_a)
     tok = logits[:, -1].argmax(-1).int().cpu().numpy()
     decode_card = _device_times(
@@ -1013,24 +1200,224 @@ def serve_phase() -> dict:
     return {"launches": launches}
 
 
+# -- 9. serving RWKV6-7B and Jamba at full width ------------------------------------
+def _float32_mask(tree, under: bool = False):
+    """The tree's shape, True at each leaf ``place_params`` keeps in
+    float32 (one under a name in ``lm.FLOAT32_LEAVES``)."""
+    from repro_torch.models import lm
+    if isinstance(tree, dict):
+        return {k: _float32_mask(v, under or k in lm.FLOAT32_LEAVES)
+                for k, v in tree.items()}
+    return under
+
+
+def _draw_placed(cfg):
+    """The params of ``cfg`` as ``ServeSession`` holds them, drawn on the
+    card from seed 0 leaf by leaf, in ``init_params``' order and with its
+    numbers, each float32 draw cast at once to the compute dtype unless
+    the model reads it in float32: one float32 leaf is alive at a time
+    (Jamba's 13.3 B float32 params would not fit beside their bf16
+    copy)."""
+    from repro_torch import _tree
+    from repro_torch.models import lm, registry
+    from repro_torch.sharding import logical as L
+    specs = registry.param_specs(cfg)
+    leaves, treedef = _tree.tree_flatten(specs)
+    keep = _tree.tree_leaves(_float32_mask(specs))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    placed = []
+    for spec, f32 in zip(leaves, keep):
+        t = L.init_params(gen, spec, "cuda")
+        placed.append(t if f32 else t.to(lm.COMPUTE_DTYPE))
+        del t
+    return _tree.tree_unflatten(treedef, placed), sum(
+        spec.num_params() for spec in leaves)
+
+
+def _family_prompts(vocab: int, ragged: bool):
+    """Wave A: eight 1,024-token prompts (numpy seed 0); with ``ragged``
+    also wave B: eight of 600 to 1,000 tokens (seed 1) left-padded to
+    1,000, as phase 8's waves."""
+    from repro_torch.serve.engine import Request
+    n, new = FAMILY_SERVE["max_batch"], FAMILY_SERVE["max_new_tokens"]
+    rng = np.random.default_rng(SEED)
+    waves = [[Request(i, rng.integers(0, vocab, WAVE_A_LEN).astype(np.int32),
+                      new) for i in range(n)]]
+    if ragged:
+        rng = np.random.default_rng(SEED + 1)
+        lens = list(rng.integers(WAVE_B_LENS[0], WAVE_B_LENS[1], n - 1)) + [
+            WAVE_B_LENS[1]]
+        waves.append([Request(n + i, rng.integers(0, vocab, int(m)).astype(
+            np.int32), new) for i, m in enumerate(lens)])
+    return waves
+
+
+def _calm_weights(params) -> None:
+    """Adjust the drawn params of the recurrent families in place, so
+    that the logit checks measure the kernels and not the random model:
+    - each recurrent mixer's output projection (RWKV6's time-mix ``wo``,
+      Mamba's ``out_proj``) at a tenth.  With every projection at unit
+      scale (the reference's initializer) the random model is chaotic at
+      full width: differences at the level of float32 rounding in a scan
+      grow from layer to layer until two paths' logits decorrelate.  The
+      real RWKV6 initializer zeroes that projection;
+    - every MoE router at zero: all experts tie and each token takes
+      experts 0 and 1 (ties fall to the lower index in both paths), so a
+      router near-tie cannot route a token otherwise on one path than on
+      the other (routing is held to the reference on the CPU);
+    - the attention projections at their true fan-in
+      (``_unit_scale_attention``)."""
+    for sub, p in params["blocks"].items():
+        mixer, ffn = p["mixer"], p["ffn"]
+        if "w_lora_a" in mixer:
+            mixer["wo"] *= 0.1
+        if "out_proj" in mixer:
+            mixer["out_proj"] *= 0.1
+        if "wq" in mixer:
+            _unit_scale_attention(params, sub)
+        if "router" in ffn:
+            ffn["router"].zero_()
+
+
+def _reset_model_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    for m in (fk, wk, mk):
+        m.reset_launch_count()
+
+
+def _model_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    return {"flash_attention": fk.launches, "rwkv6_scan": wk.launches,
+            "mamba_scan": mk.launches}
+
+
+def family_serve_phase(arch: str, ragged: bool, must_launch,
+                       **overrides) -> dict:
+    """``arch`` at its published width (``overrides`` cut its depth only)
+    with ``attn_impl="flash"``, its drawn params adjusted by
+    ``_calm_weights``, served through ``Scheduler``: the waves of
+    ``_family_prompts``, 16 new tokens each.  Checks the prefill through
+    the kernels against the plain path's prefill (the plain scans and
+    attention) and the last decode step against a full forward through
+    the plain path (whose attention is the one decode runs), each within
+    5e-2 of the largest logit, every logit finite, and each kernel of
+    ``must_launch`` launched on this path; returns the path's launch
+    counts."""
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import (Request, Scheduler, ServeConfig,
+                                          ServeSession)
+    cfg = registry.get_config(arch, attn_impl="flash", **overrides)
+    waves = _family_prompts(cfg.vocab_size, ragged)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = _draw_placed(cfg)
+    _calm_weights(params)
+    session = ServeSession(cfg, params, ServeConfig(**FAMILY_SERVE))
+    del params
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "model": cfg.name, "step": "load",
+          "params": n_params, "seconds": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    # one short wave first: cuBLAS handles and the kernels' first launches
+    session.run_wave([Request(100 + i, r.prompt[:128], 2)
+                      for i, r in enumerate(waves[0])])
+
+    _reset_model_counts()                     # this serve path starts here
+    sched = Scheduler(session)
+    for wave in waves:
+        for r in wave:
+            sched.submit(r)
+    done = sched.run()
+    torch.cuda.synchronize()
+    launches = _model_counts()                # ... and ends here
+    last_logits = session.last_logits
+    n = FAMILY_SERVE["max_batch"]
+    plain = ServeSession(dataclasses.replace(cfg, attn_impl="reference"),
+                         session.params, session.scfg)
+    plain.last_logits = last_logits
+    rel_decode = _rel_rows(*_decode_and_forward(plain, waves[-1],
+                                                done[-n:]))
+    del plain
+    rel_prefill = _flash_vs_plain_rows(session, _padded(waves[0]))
+    torch.cuda.synchronize()
+    stats = {}
+    for name, i in zip("AB", range(len(waves))):
+        c = done[i * n]
+        steps = FAMILY_SERVE["max_new_tokens"] - 1
+        plen = int(_padded(waves[i]).shape[1])
+        stats[name] = {"prompt_len": plen,
+                       "prefill_s": c.prefill_seconds,
+                       "decode_s": c.decode_seconds, "decode_steps": steps,
+                       "decode_tokens_per_s": n * steps / c.decode_seconds,
+                       "prefill_tokens_per_s": n * plen / c.prefill_seconds}
+    emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": n_params, "serve_config": FAMILY_SERVE, "waves": stats,
+          "launches": launches,
+          "prefill_kernels_vs_plain_rel_by_row": rel_prefill,
+          "decode_vs_forward_rel_by_row": rel_decode,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    for name in must_launch:
+        check(launches[name] > 0, f"{cfg.name}: no {name} launch on its "
+                                  f"serve path")
+    check(max(rel_prefill) <= LOGIT_TOL,
+          f"{cfg.name}: kernel prefill vs plain prefill {rel_prefill}")
+    check(max(rel_decode) <= LOGIT_TOL,
+          f"{cfg.name}: decode vs forward {rel_decode}")
+    check(bool(torch.isfinite(last_logits).all()), "non-finite logits")
+    check(all(c.tokens.shape == (FAMILY_SERVE["max_new_tokens"],)
+              for c in done), "completions: wrong token counts")
+    emit({"phase": "serve", "model": cfg.name, "checks": "passed"})
+    return launches
+
+
 # -- 8. the bdml island over the ICU feed -------------------------------------------
+def _direct_score(loaded, vals) -> torch.Tensor:
+    """The port's direct forward and mean next-token NLL of one window's
+    rows, as the island must give them bitwise."""
+    from repro_torch.models import registry
+    from repro_torch.stream import ml
+    cfg, params = loaded
+    toks = ml.quantize(vals, cfg.vocab_size)
+    t = torch.from_numpy(toks[None]).to(params["embed"]["embedding"].device)
+    logits, _ = registry.forward(params, {"tokens": t}, cfg)
+    logp = torch.log_softmax(logits[0, :-1].float(), -1)
+    return -logp.gather(-1, t[0, 1:, None].long())[..., 0].mean()
+
+
 def ml_phase() -> None:
+    """Standing infer queries of the four model aliases over the ICU feed:
+    ``lm`` and ``moe`` over one-minute windows every tick, ``rwkv6`` and
+    ``mamba`` (Jamba), whose reduced configs run their plain scans token
+    by token, over ten-second windows every fifth tick."""
     from repro_torch.core.api import default_deployment
     from repro_torch.data.mimic import stream_mimic_waveforms
-    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models import registry
     from repro_torch.sharding import logical as L
     from repro_torch.stream import ml
     bd = default_deployment(stream_engines=1)
-    bd.register_model("lm")
-    cq = bd.register_continuous(
-        f"bdml(infer(window({WAVE}, {MINUTE}), models.lm))", 1,
-        name="lm_score")
-    cfg = registry.get_config("qwen2-1.5b", reduced=True)
-    params = L.init_params(torch.Generator().manual_seed(SEED),
-                           registry.param_specs(cfg), bd.device)
-    s0, flash0 = ml.stats(), fk.launches
-    scored, ticks_s = 0, []
+    queries = {"lm": (MINUTE, 1), "moe": (MINUTE, 1),
+               "rwkv6": (ML_SCAN_WINDOW, ML_SCAN_EVERY),
+               "mamba": (ML_SCAN_WINDOW, ML_SCAN_EVERY)}
+    cqs, models = {}, {}
+    for alias, (window, every) in queries.items():
+        bd.register_model(alias)
+        cqs[alias] = bd.register_continuous(
+            f"bdml(infer(window({WAVE}, {window}), models.{alias}))", every,
+            name=f"{alias}_score")
+        cfg = registry.get_config(ml.resolve_arch(alias), reduced=True)
+        models[alias] = (cfg, L.init_params(
+            torch.Generator().manual_seed(SEED), registry.param_specs(cfg),
+            bd.device))
+    _reset_model_counts()
+    s0 = ml.stats()
+    scored = {alias: 0 for alias in queries}
+    ticks_s = []
     t0 = time.perf_counter()
     for info in stream_mimic_waveforms(bd, batch_rows=MINUTE,
                                        num_batches=ML_BATCHES,
@@ -1038,36 +1425,46 @@ def ml_phase() -> None:
                                        seed=SEED):
         torch.cuda.synchronize()
         ticks_s.append(time.perf_counter() - t0)
-        check(cq.errors == 0, f"lm_score: {cq.last_error}")
-        rows = bd.engines["streamstore0"].get(WAVE).window(MINUTE)
-        vals = rows.attrs["signal"].cpu().numpy().astype(np.float64)
-        toks = ml.quantize(vals, cfg.vocab_size)
-        t = torch.from_numpy(toks[None]).to(bd.device)
-        logits, _ = registry.forward(params, {"tokens": t}, cfg)
-        logp = torch.log_softmax(logits[0, :-1].float(), -1)
-        want = -logp.gather(-1, t[0, 1:, None].long())[..., 0].mean()
-        got = cq.last_value.columns["score"]
-        check(got.shape == (1,) and torch.equal(got[0], want),
-              f"batch {info['batch']}: infer {float(got[0])} != direct "
-              f"{float(want)}")
-        check(bool(torch.isfinite(got).all()), "non-finite score")
-        scored += 1
+        ran = {name for name, _ in info["ran"]}
+        for alias, (window, every) in queries.items():
+            cq = cqs[alias]
+            check(cq.errors == 0, f"{alias}_score: {cq.last_error}")
+            if f"{alias}_score" not in ran:
+                continue
+            rows = bd.engines["streamstore0"].get(WAVE).window(window)
+            vals = rows.attrs["signal"].cpu().numpy().astype(np.float64)
+            want = _direct_score(models[alias], vals)
+            got = cq.last_value.columns["score"]
+            check(got.shape == (1,) and torch.equal(got[0], want),
+                  f"{alias} batch {info['batch']}: infer {float(got[0])} != "
+                  f"direct {float(want)}")
+            check(bool(torch.isfinite(got).all()), "non-finite score")
+            scored[alias] += 1
         t0 = time.perf_counter()
     s1 = ml.stats()
     waves = s1["waves"] - s0["waves"]
-    check(scored == ML_BATCHES and waves == ML_BATCHES,
-          f"ml island: {scored} scored ticks, {waves} waves")
-    check(fk.launches == flash0, "the ml island launched a kernel")
-    emit({"phase": "ml", "ticks": ML_BATCHES, "window_rows": MINUTE,
+    want_scored = {alias: ML_BATCHES // every
+                   for alias, (_, every) in queries.items()}
+    check(scored == want_scored and waves == ML_BATCHES,
+          f"ml island: {scored} scored ticks (want {want_scored}), "
+          f"{waves} waves")
+    check(not any(_model_counts().values()),
+          "the ml island launched a kernel")
+    emit({"phase": "ml", "ticks": ML_BATCHES,
           "ring_capacity": WAVE_FEED["capacity"], "waves": waves,
-          "bitwise_ticks": scored, "tick_s": ticks_s,
-          "tick_p50_s": float(np.median(ticks_s)),
-          "query": cq.metrics(),
+          "queries": {alias: {"window_rows": w, "every_n_ticks": e,
+                              "arch": ml.resolve_arch(alias),
+                              "bitwise_ticks": scored[alias],
+                              "metrics": cqs[alias].metrics()}
+                      for alias, (w, e) in queries.items()},
+          "tick_s": ticks_s, "tick_p50_s": float(np.median(ticks_s)),
           "kernels_launched": 0,
-          "note": ("the island scores with the reduced config and plain "
-                   "attention (attn_impl='reference'), as the reference "
-                   "does: no kernel of the port runs in this phase")})
-    bd.streams.deregister("lm_score")
+          "note": ("the island scores with the reduced configs and plain "
+                   "attention and scans (attn_impl='reference'), as the "
+                   "reference does: no kernel of the port runs in this "
+                   "phase")})
+    for alias in queries:
+        bd.streams.deregister(f"{alias}_score")
 
 
 # -- 9. kernel times --------------------------------------------------------------
@@ -1312,6 +1709,71 @@ def flash_kernel_rows(launches: int, err: float) -> list:
                       "against a bound at the bf16 tensor-core rate")}]
 
 
+def _f32_bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` of device memory traffic and ``ops``
+    float32 operations outside the tensor cores, and which bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def _scan_times(kernel, plain, sets, nbytes: int, ops: int) -> dict:
+    return {"ms": _graph_ms([lambda x=x: kernel(*x) for x in sets]),
+            "plain_ms": _graph_ms([lambda x=x: plain(*x) for x in sets],
+                                  reps=1),
+            **_f32_bound(nbytes, ops)}
+
+
+def scan_kernel_rows(launches: dict, err: dict) -> list:
+    """rwkv6_scan at RWKV6-7B's wave (8, 1,024, 64 heads of 64, float32,
+    full-width decays) and mamba_scan at Jamba's (8, 1,024, 8,192, N 16,
+    bf16 as the model feeds it; f32 beside it), each over two input sets
+    that rotate past the 50 MB L2, against its plain version.  No one
+    PyTorch call computes either recurrence."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ref as mref
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    b, s, h, d = WKV_SHAPE
+    sets = [_wkv_inputs(b, s, h, d, "full_width", 110 + i) for i in range(2)]
+    # read r, k, v, w, u and S_0 once, write y and S; per state element
+    # and token: k v, u (k v) + S, r (...) summed, w S + k v: 7 operations
+    wkv = _scan_times(wk.wkv6_4d, wref.wkv6, sets,
+                      4 * (5 * b * s * h * d + h * d + 2 * b * h * d * d),
+                      7 * b * s * h * d * d)
+    del sets
+    b, s, di, n = SCAN_SHAPE
+    scan = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        sets = [_scan_inputs(b, s, di, n, dtype, 120 + i) for i in range(2)]
+        esize = torch.finfo(dtype).bits // 8
+        # read u, dt, b, c, A and h0 once, write y and h; per (b, t, d)
+        # dt u, and per state element dt A, its exp, the update (a
+        # multiply and an FMA) and y's FMA: 7 N + 1 operations
+        scan[dtype] = _scan_times(
+            mk.selective_scan_3d, mref.selective_scan, sets,
+            esize * (3 * b * s * di + 2 * b * s * n) + 4 * di * n
+            + 8 * b * di * n, b * s * di * (7 * n + 1))
+        del sets
+    common = {"route": "cuda", "library_ms": None,
+              "library": "none (no one call)"}
+    return [
+        {"name": "rwkv6_scan",
+         "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+         "replaces": f"{WKV_REPLACES}:33",
+         "launches": launches["rwkv6_scan"], "max_abs_err": err["rwkv6_scan"],
+         **common, **wkv, "shape": list(WKV_SHAPE), "dtype": "float32"},
+        {"name": "mamba_scan",
+         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+         "replaces": f"{SCAN_REPLACES}:31",
+         "launches": launches["mamba_scan"], "max_abs_err": err["mamba_scan"],
+         **common, **scan[torch.bfloat16], "shape": list(SCAN_SHAPE),
+         "dtype": "bfloat16", "max_abs_err_bf16": err["mamba_scan_bf16"],
+         "f32": scan[torch.float32]}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1371,14 +1833,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash_err = flash_parity()
+    scan_err = scan_parity()
     serve = serve_phase()                     # resets and reads its counts
+    torch.cuda.empty_cache()
+    # each family phase resets the model kernels' counts before its serve
+    # path and reads them after it
+    rwkv = family_serve_phase("rwkv6-7b", True, ("rwkv6_scan",))
+    jamba = family_serve_phase("jamba-v0.1-52b", False,
+                               ("mamba_scan", "flash_attention"),
+                               num_layers=JAMBA_LAYERS)
     torch.cuda.empty_cache()
     ml_phase()
     torch.cuda.empty_cache()
 
     rows = quant_kernel_rows(launches, err)
     rows += stream_kernel_rows(stream_launches, stream_err)
-    rows += flash_kernel_rows(serve["launches"], flash_err)
+    rows += flash_kernel_rows(serve["launches"] + jamba["flash_attention"],
+                              flash_err)
+    rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],
+                                    "serve_jamba": jamba["flash_attention"]}
+    rows += scan_kernel_rows({"rwkv6_scan": rwkv["rwkv6_scan"],
+                              "mamba_scan": jamba["mamba_scan"]}, scan_err)
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -9,7 +9,7 @@ passes through, which is what lets ``serve.engine.ServeSession`` cast
 once when it is built.  Norm scales are read in float32.
 
 Elementwise math in bfloat16 follows XLA's rounding: every HLO op of the
-reference (``jax.nn.silu`` is ``x * 1/(1 + exp(-x))``, four ops) rounds
+reference (``jax.nn.silu`` is ``x * 1/(1 + exp(-x))``, five ops) rounds
 its result to bfloat16, and a Python constant is rounded to the array's
 dtype first (``weak``), where a fused torch op would round once and keep
 the constant in float32.
@@ -31,9 +31,15 @@ def weak(c: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(c, dtype=dtype))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``, which XLA expands in the
+    array's dtype), op by op: neg, exp, add, divide."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``, op by op: neg, exp, add, divide, multiply."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``jax.nn.silu``, op by op: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,22 @@
 """Unified decoder-only language model, ported from ``repro.models.lm``:
-the dense path (attention mixers, dense FFNs), with the parallel block,
-the leading dense layers (``first_k_dense``), QK-norm, the logit softcap
-and the vision stub's ``prefix_embeds``.
+the dense, moe, ssm (RWKV6), hybrid (Jamba: Mamba + attention, MoE) and
+vlm families, with the parallel block, the leading dense layers
+(``first_k_dense``), QK-norm, the logit softcap and the vision stub's
+``prefix_embeds``.
 
 Parameters keep the reference's stacked layout (``blocks`` holds every
-scanned layer's leaves with a leading LAYER axis), so the parameter trees
-of the two packages flatten alike; the reference's ``lax.scan`` over that
-axis is a Python loop here.  The RWKV6 and Mamba mixers and the MoE and
-RWKV channel-mix FFNs raise ``NotImplementedError`` until their slice
-ports them (ROADMAP.md §1, item 8a).
+scanned period's leaves with a leading LAYER axis), so the parameter
+trees of the two packages flatten alike; the reference's ``lax.scan``
+over that axis is a Python loop here.  ``forward`` returns the MoE
+auxiliary loss summed over the layers in the reference's order (zero for
+the families without MoE).
 
 Three entry points:
   forward(...)       — full-sequence forward -> (logits, aux)
   prefill(...)       — full-sequence forward that also fills the caches
   decode_step(...)   — one-token step against the caches (serve path)
 
-Caches are written in place (see ``attention``).
+Caches are written in place (see ``attention``, ``rwkv6`` and ``mamba``).
 """
 from __future__ import annotations
 
@@ -24,22 +25,22 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import _tree
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16          # activations; params stay f32
-# the parameter subtrees the model reads in float32 (the norms' scales and
-# biases, QK-norm's scales); every other leaf is cast to COMPUTE_DTYPE
-# where it is used, so a caller may cast those once ahead of time
-# (``serve.engine.place_params``).  A mixer or FFN that reads another leaf
-# in float32 names it here.
-FLOAT32_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm"})
-UNPORTED = ("is not ported yet: the {} family comes with ROADMAP.md §1 "
-            "item 8a (the moe/mamba/rwkv6 slice)")
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind!r} " + UNPORTED.format(kind))
+# the parameter subtrees the model reads in float32; every other leaf is
+# cast to COMPUTE_DTYPE where it is used, so a caller may cast those once
+# ahead of time (``serve.engine.place_params``).  A mixer or FFN that
+# reads another leaf in float32 names it here.
+FLOAT32_LEAVES = frozenset({
+    "ln1", "ln2", "final_norm",                    # norm scales and biases
+    "q_norm", "k_norm",                            # QK-norm (attention)
+    "w0", "w_lora_a", "w_lora_b", "u",             # RWKV6 decay and bonus
+    "ln_scale", "ln_bias",                         # RWKV6 group norm
+    "a_log", "dt_norm", "b_norm", "c_norm",        # Mamba decay, dt/B/C norms
+    "router",                                      # MoE routing logits
+})
 
 
 # ---------------------------------------------------------------------------
@@ -48,8 +49,10 @@ def _unported(kind: str) -> NotImplementedError:
 def _mixer_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "attn":
         return attention.attn_specs(cfg)
-    if kind in ("rwkv6", "mamba"):
-        raise _unported(kind)
+    if kind == "rwkv6":
+        return rwkv6.time_mix_specs(cfg)
+    if kind == "mamba":
+        return mamba.mamba_specs(cfg)
     raise ValueError(kind)
 
 
@@ -57,8 +60,10 @@ def _ffn_specs(cfg: ModelConfig, kind: str, *, dense_ff: int = 0) -> dict:
     if kind == "dense":
         return layers.ffn_specs(cfg.d_model, dense_ff or cfg.d_ff,
                                 cfg.mlp_kind)
-    if kind in ("moe", "rwkv_cm"):
-        raise _unported(kind)
+    if kind == "moe":
+        return moe.moe_specs(cfg)
+    if kind == "rwkv_cm":
+        return rwkv6.channel_mix_specs(cfg)
     raise ValueError(kind)
 
 
@@ -96,11 +101,16 @@ def param_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 def _sub_cache_specs(cfg: ModelConfig, mixer_kind: str, ffn_kind: str,
                      batch: int, cache_len: int) -> dict:
-    if mixer_kind != "attn":
-        raise _unported(mixer_kind)
+    out: Dict[str, Any] = {}
+    if mixer_kind == "attn":
+        out["kv"] = attention.kv_cache_specs(cfg, batch, cache_len)
+    elif mixer_kind == "rwkv6":
+        out["time"] = rwkv6.init_time_state(cfg, batch)
+    elif mixer_kind == "mamba":
+        out["ssm"] = mamba.init_mamba_state(cfg, batch)
     if ffn_kind == "rwkv_cm":
-        raise _unported(ffn_kind)
-    return {"kv": attention.kv_cache_specs(cfg, batch, cache_len)}
+        out["channel"] = rwkv6.init_channel_state(cfg, batch)
+    return out
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
@@ -127,9 +137,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
 # ---------------------------------------------------------------------------
 def _apply_mixer(params, x, kind, cfg, *, cache=None, pos=None,
                  mode="train"):
-    """The mixer's output; ``cache`` is the mixer's state dict or None."""
+    """The mixer's output; ``cache`` is the sub-layer's state dict or
+    None (train mode reads and writes no state)."""
+    if kind == "rwkv6":
+        state = cache["time"] if mode != "train" else None
+        return rwkv6.apply_time_mix(params, x, cfg, state)[0]
+    if kind == "mamba":
+        state = cache["ssm"] if mode != "train" else None
+        return mamba.apply_mamba(params, x, cfg, state)[0]
     if kind != "attn":
-        raise _unported(kind)
+        raise ValueError(kind)
     if mode == "train":
         return attention.self_attention(params, x, cfg)
     if mode == "prefill":
@@ -144,23 +161,33 @@ def _apply_mixer(params, x, kind, cfg, *, cache=None, pos=None,
     return attention.decode_attention(params, x, cache["kv"], pos, cfg)[0]
 
 
-def _apply_ffn(params, x, kind, cfg):
-    if kind != "dense":
-        raise _unported(kind)
-    return layers.apply_ffn(params, x, cfg.mlp_kind)
+def _apply_ffn(params, x, kind, cfg, *, cache=None, mode="train"):
+    """(the FFN's output, its auxiliary loss: a 0-d tensor or 0.0)."""
+    if kind == "dense":
+        return layers.apply_ffn(params, x, cfg.mlp_kind), 0.0
+    if kind == "moe":
+        return moe.apply_moe(params, x, cfg)
+    if kind == "rwkv_cm":
+        state = cache["channel"] if mode != "train" else None
+        return rwkv6.apply_channel_mix(params, x, cfg, state)[0], 0.0
+    raise ValueError(kind)
 
 
 def _apply_sub(sub_params, x, mixer_kind, ffn_kind, cfg, *, cache=None,
                pos=None, mode="train"):
-    """One (mixer + ffn) sub-layer with residuals."""
+    """One (mixer + ffn) sub-layer with residuals -> (x, aux)."""
     h = layers.apply_norm(sub_params["ln1"], x, cfg.norm_kind, cfg.norm_eps)
     attn_out = _apply_mixer(sub_params["mixer"], h, mixer_kind, cfg,
                             cache=cache, pos=pos, mode=mode)
     if cfg.parallel_block:
-        return x + attn_out + _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg)
+        ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg,
+                                  cache=cache, mode=mode)
+        return x + attn_out + ffn_out, aux
     x = x + attn_out
     h = layers.apply_norm(sub_params["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg)
+    ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg,
+                              cache=cache, mode=mode)
+    return x + ffn_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -175,41 +202,48 @@ def _embed_inputs(params, tokens, prefix_embeds=None):
 
 def _run_stack(params, x, cfg, *, cache=None, pos=None, mode="train"):
     """Prologue layers then the stacked layers, in order; the cache's
-    (stacked) tensors are written in place."""
+    (stacked) tensors are written in place.  Returns (x, aux): the
+    auxiliary losses summed a period at a time, then over the periods,
+    as the reference's scan carries them."""
     plan = cfg.layer_plan()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(cfg.first_k_dense):
-        x = _apply_sub(params[f"prologue{j}"], x, "attn", "dense", cfg,
-                       cache=cache[f"prologue{j}"] if cache else None,
-                       pos=pos, mode=mode)
+        x, aux = _apply_sub(params[f"prologue{j}"], x, "attn", "dense", cfg,
+                            cache=cache[f"prologue{j}"] if cache else None,
+                            pos=pos, mode=mode)
+        aux_total = aux_total + aux
     for i in range(cfg.num_scanned()):
         # views of layer i: writes into a cache view land in the stack
         block_p = _tree.tree_map(lambda p: p[i], params["blocks"])
         block_c = (_tree.tree_map(lambda c: c[i], cache["blocks"])
                    if cache else None)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for n, (mixer_kind, ffn_kind) in enumerate(plan):
-            x = _apply_sub(block_p[f"sub{n}"], x, mixer_kind, ffn_kind, cfg,
-                           cache=block_c[f"sub{n}"] if block_c else None,
-                           pos=pos, mode=mode)
-    return x
+            x, aux = _apply_sub(block_p[f"sub{n}"], x, mixer_kind, ffn_kind,
+                                cfg,
+                                cache=block_c[f"sub{n}"] if block_c else None,
+                                pos=pos, mode=mode)
+            aux_sum = aux_sum + aux
+        aux_total = aux_total + aux_sum
+    return x, aux_total
 
 
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward: tokens (B,S_text) -> (logits (B,S,V) f32, aux_loss)."""
     x = _embed_inputs(params, tokens, prefix_embeds)
-    x = _run_stack(params, x, cfg, mode="train")
+    x, aux = _run_stack(params, x, cfg, mode="train")
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind,
                           cfg.norm_eps)
     logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)
-    # the dense family has no auxiliary loss
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def prefill(params, tokens, cache, cfg: ModelConfig, prefix_embeds=None):
     """Fill caches for positions [0, S), in place. Returns (last-token
     logits, cache)."""
     x = _embed_inputs(params, tokens, prefix_embeds)
-    x = _run_stack(params, x, cfg, cache=cache, mode="prefill")
+    x, _ = _run_stack(params, x, cfg, cache=cache, mode="prefill")
     x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm_kind,
                           cfg.norm_eps)
     logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)
@@ -220,7 +254,7 @@ def decode_step(params, tokens, cache, pos: int, cfg: ModelConfig):
     """One-token decode. tokens: (B,1); pos: cache write position (the
     cache is written in place)."""
     x = _embed_inputs(params, tokens)
-    x = _run_stack(params, x, cfg, cache=cache, pos=pos, mode="decode")
+    x, _ = _run_stack(params, x, cfg, cache=cache, pos=pos, mode="decode")
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind,
                           cfg.norm_eps)
     logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)

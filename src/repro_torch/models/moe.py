@@ -1,0 +1,158 @@
+"""Mixture-of-Experts FFN, ported from ``repro.models.moe``: the dropless
+reference path (the default, ``cfg.moe_dropless``) and the sort-based
+capacity dispatch.
+
+* Dropless: every routed token-slot contributes, so a token's output
+  depends only on its own row (forward ≡ prefill + decode, and the result
+  does not depend on what else shares the batch).  The experts run one
+  after another over all tokens, where the reference forms (T, E, F)
+  intermediates in one einsum: each expert's products are the same, and
+  the gate-weighted sum over experts is taken in float32 and rounded
+  once, as the reference's bf16 einsum takes it.
+* Capacity: token-slots sorted by expert (a stable argsort), clipped to
+  ``capacity`` slots an expert, the experts batched over an (E, C, D)
+  buffer, and a gate-weighted scatter-add back to the tokens.  Slots past
+  an expert's capacity are dropped, as the reference's ``mode="drop"``
+  scatter drops them.
+* Shared experts (deepseek-moe) are one fused dense swiglu of hidden
+  ``num_shared_experts * moe_d_ff``, added to the routed output.
+
+``route`` breaks ties between equal router probabilities toward the lower
+expert id, as ``jax.lax.top_k`` does (a stable descending sort;
+``torch.topk`` promises no order among ties).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import logical as L
+from repro_torch.sharding.logical import ParamSpec
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    specs = {
+        "router": ParamSpec((d, e), (L.EMBED, L.EXPERT)),
+        "wi_gate": ParamSpec((e, d, f), (L.EXPERT, L.EMBED, None)),
+        "wi_up": ParamSpec((e, d, f), (L.EXPERT, L.EMBED, None)),
+        "wo": ParamSpec((e, f, d), (L.EXPERT, None, L.EMBED)),
+    }
+    if cfg.num_shared_experts:
+        specs["shared"] = layers.ffn_specs(
+            d, cfg.num_shared_experts * f, "swiglu")
+    return specs
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    c = math.ceil(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)     # round up to 8, as the reference does
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values along the last axis and their indices, equal
+    values in ascending index order (``jax.lax.top_k``'s order)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def route(params: dict, xt: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (gate_weights (T,K), expert_ids (T,K), aux_loss scalar)."""
+    logits = xt.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert_ids = top_k(probs, cfg.top_k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    # Load-balancing aux loss (Switch-style): E * sum(frac_tokens * frac_prob)
+    e = cfg.num_experts
+    onehot = torch.nn.functional.one_hot(expert_ids[:, 0], e).float()
+    frac_tokens = onehot.mean(0)
+    frac_probs = probs.mean(0)
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return gate, expert_ids, aux
+
+
+def _swiglu_expert(params: dict, xt: torch.Tensor, i) -> torch.Tensor:
+    """Expert ``i``'s swiglu on (..., D) rows (``i`` indexes the stacked
+    expert axis: an int, or a slice for the batched capacity buffer)."""
+    dt = xt.dtype
+    gate_h = xt @ params["wi_gate"][i].to(dt)
+    up_h = xt @ params["wi_up"][i].to(dt)
+    return (layers.silu(gate_h) * up_h) @ params["wo"][i].to(dt)
+
+
+def _apply_moe_dropless(params: dict, x: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact dropless MoE: dense per-expert compute, gate-masked combine."""
+    b, s, d = x.shape
+    t = b * s
+    dt = x.dtype
+
+    xt = x.reshape(t, d)
+    gate, expert_ids, aux = route(params, xt, cfg)
+
+    # combine weights (T, E): gate mass each token sends to each expert
+    # (top-k ids are distinct, so the scatter-add never collides per row)
+    w = torch.zeros((t, cfg.num_experts), dtype=dt, device=x.device)
+    w.scatter_add_(1, expert_ids, gate.to(dt))
+
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_experts):
+        y += _swiglu_expert(params, xt, i).float() * w[:, i, None].float()
+
+    out = y.to(dt).reshape(b, s, d)
+    if cfg.num_shared_experts:
+        out = out + layers.apply_ffn(params["shared"], x, "swiglu")
+    return out, aux
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B,S,D), aux_loss)."""
+    if cfg.moe_dropless:
+        return _apply_moe_dropless(params, x, cfg)
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.top_k
+    c = capacity(t, cfg)
+    dt = x.dtype
+
+    xt = x.reshape(t, d)
+    gate, expert_ids, aux = route(params, xt, cfg)
+
+    flat_e = expert_ids.reshape(t * k)
+    flat_gate = gate.reshape(t * k).to(dt)
+
+    # --- dispatch: sort token-slots by expert, clip to capacity ------------
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    counts = torch.bincount(flat_e, minlength=e)
+    seg_start = torch.cumsum(counts, 0) - counts         # (E,)
+    pos_in_expert = torch.arange(t * k, device=x.device) - seg_start[sorted_e]
+    keep = pos_in_expert < c
+    token_idx = sort_idx // k                            # sorted-slot -> token
+    dest = sorted_e * c + pos_in_expert                  # valid where keep
+
+    buf = torch.zeros((e * c, d), dtype=dt, device=x.device)
+    buf[dest[keep]] = xt[token_idx[keep]]                # over-capacity: dropped
+    buf = buf.reshape(e, c, d)
+
+    # --- expert FFN (batched swiglu over the expert axis) ------------------
+    out_e = _swiglu_expert(params, buf, slice(None))     # (E, C, D)
+
+    # --- combine: gather back to token slots, weight, scatter-add ----------
+    gathered = torch.where(keep[:, None],
+                           out_e.reshape(e * c, d)[dest.clamp(max=e * c - 1)],
+                           torch.zeros((), dtype=dt, device=x.device))
+    contrib = gathered * flat_gate[sort_idx][:, None]
+    y = torch.zeros((t, d), dtype=dt, device=x.device)
+    y.index_add_(0, token_idx, contrib)
+
+    out = y.reshape(b, s, d)
+    if cfg.num_shared_experts:
+        out = out + layers.apply_ffn(params["shared"], x, "swiglu")
+    return out, aux

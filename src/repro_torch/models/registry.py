@@ -7,9 +7,10 @@ Batch dicts:
   prefill: {tokens (B,S)} (+ prefix_embeds) + cache tree
   decode:  {tokens (B,1)} + cache tree + pos
 
-Encoder-decoder archs (seamless-m4t-medium) come with the encoder-decoder
-slice, and ``loss_fn``/``make_train_batch`` with the training slice
-(ROADMAP.md).
+Every decoder-only arch of the pool runs (the dense, moe, ssm, hybrid and
+vlm families).  Encoder-decoder archs (seamless-m4t-medium) come with the
+encoder-decoder slice, and ``loss_fn``/``make_train_batch`` with the
+training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def _decoder_only(cfg: ModelConfig) -> None:
     if is_encdec(cfg):
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder archs are not ported yet "
-            f"(ROADMAP.md §1 item 8a, the encoder-decoder slice)")
+            f"(ROADMAP.md §1, the encoder-decoder slice)")
 
 
 def param_specs(cfg: ModelConfig):

@@ -2,11 +2,12 @@
 decode against the KV cache, with a wave-based (iteration-level) batching
 scheduler and the optional int8 KV-page codec.
 
-Decode slots are position-aligned within a wave (one cache cursor);
+Decode slots are position-aligned within a wave (one cache cursor;
+the recurrent families' states have no cursor and take the same steps);
 requests are left-padded into waves by the scheduler, as the reference
 pads them.  A session runs on the card unless the caller asks for the CPU
-(``device="cpu"``), where the flash kernel's plain version stands in for
-it.  The serving front door (``frontdoor.py``) comes with its own slice
+(``device="cpu"``), where the kernels' plain versions stand in for
+them.  The serving front door (``frontdoor.py``) comes with its own slice
 (ROADMAP.md), and with it ``ServeConfig.streams``, which only the front
 door reads; the reference's unused ``quantize_kv_between_waves`` knob is
 not carried over.
@@ -30,7 +31,8 @@ def place_params(params: Any, device) -> Any:
     """The parameter tree on ``device``, with every leaf the model casts
     to the compute dtype at each use (projections, biases, the embedding, the
     FFN) cast once now and the subtrees the model reads in float32
-    (``lm.FLOAT32_LEAVES``: the norms) left as they are:
+    (``lm.FLOAT32_LEAVES``: the norms, RWKV6's decay, bonus and group
+    norm, Mamba's decay and dt/B/C norms, the MoE router) left as they are:
     the model's ``.to(dtype)`` then passes the cast leaves through, so
     the results are bit for bit those of casting at each use."""
     if isinstance(params, dict):

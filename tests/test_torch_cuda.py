@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (quant_cast, the streaming kernels and flash
-attention) on the card, against their plain PyTorch versions.  Marked ``cuda``: without a CUDA device each test skips, since a
+"""The port's CUDA kernels (quant_cast, the streaming kernels, flash
+attention and the two scans, rwkv6_scan and mamba_scan) on the card,
+against their plain PyTorch versions.  Marked ``cuda``: without a CUDA device each test skips, since a
 CUDA kernel has no CPU mode.  This file imports no JAX, so it runs on the
 GPU host:
 
@@ -223,3 +224,135 @@ def test_flash_ops_route_cuda_tensors_to_the_kernel(card):
     assert fk.launches == 0
     torch.testing.assert_close(got.float(), fref.gqa_attention(
         q, k, v, causal=True).float(), atol=2e-2, rtol=2e-2)
+
+
+# -- the scans ------------------------------------------------------------------------
+WKV_TOL, SCAN_TOL = 5e-4, 5e-5                             # test_kernels.py
+
+
+def _wkv(card, b, s, h, d, seed, decays="sweep", carried=True):
+    """r, k, v standard normal; decays uniform in [0.85, 0.999] (the
+    sweep's), as RWKV6-7B's initializer gives them at full width
+    (exp(-exp(0.63 z))), or pinned at the edges of [0, 1]."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, d)) for _ in range(3))
+    if decays == "sweep":
+        w = rng.uniform(0.85, 0.999, (b, s, h, d))
+    elif decays == "full_width":
+        w = np.exp(-np.exp(0.63 * rng.standard_normal((b, s, h, d))))
+    else:
+        w = rng.choice([0.0, 1e-30, 1.0 - 1e-7, 1.0], (b, s, h, d))
+    u = rng.standard_normal((h, d))
+    s0 = rng.standard_normal((b, h, d, d)) * 0.3 if carried else None
+    return [None if x is None else
+            torch.from_numpy(np.asarray(x, np.float32)).to(card)
+            for x in (r, k, v, w, u, s0)]
+
+
+@pytest.mark.parametrize("decays", ["sweep", "full_width", "edges"])
+@pytest.mark.parametrize("b,s,h,d,carried", [
+    (1, 64, 1, 16, True), (2, 128, 2, 32, True), (1, 256, 4, 64, True),
+    (2, 96, 2, 32, True), (2, 96, 2, 32, False), (3, 1, 5, 64, True),
+    (1, 1000, 3, 64, False), (2, 33, 64, 64, True)])
+def test_wkv6_matches_plain_version_on_card(card, b, s, h, d, carried,
+                                           decays):
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    r, k, v, w, u, s0 = _wkv(card, b, s, h, d, b * s + d, decays, carried)
+    y, sf = wk.wkv6_4d(r, k, v, w, u, s0)
+    want_y, want_s = wref.wkv6(r, k, v, w, u, s0 if carried else
+                               torch.zeros((b, h, d, d), device=card))
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    torch.testing.assert_close(y, want_y, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(sf, want_s, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+def _scan(card, b, s, di, n, dtype, seed, carried=True):
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(card)  # noqa: E731
+    u = f(rng.standard_normal((b, s, di))).to(dtype)
+    dt = f(rng.uniform(0.001, 0.1, (b, s, di))).to(dtype)
+    a = f(-rng.uniform(0.5, 2.0, (di, n)))
+    bb = f(rng.standard_normal((b, s, n))).to(dtype)
+    c = f(rng.standard_normal((b, s, n))).to(dtype)
+    h0 = f(rng.standard_normal((b, di, n)) * 0.2) if carried else None
+    return u, dt, a, bb, c, h0
+
+
+def assert_scan_close(y, h, want_y, want_h, dtype):
+    """h (float32) within 5e-5; y within 5e-5 in f32, and in bf16 within
+    one bf16 rounding of the plain version's float32 y (its last bit may
+    flip where the two float32 sums round to either side of a bf16
+    boundary)."""
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(h, want_h, atol=SCAN_TOL, rtol=SCAN_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    else:
+        torch.testing.assert_close(y.float(), want_y.to(dtype).float(),
+                                   atol=SCAN_TOL, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,di,n,carried", [
+    (1, 64, 64, 8, True), (2, 128, 128, 16, True), (1, 96, 256, 16, True),
+    (1, 96, 256, 16, False), (2, 1, 200, 16, True), (1, 1000, 300, 4, True),
+    (3, 65, 8192, 16, True)])
+def test_selective_scan_matches_plain_version_on_card(card, b, s, di, n,
+                                                     carried, dtype):
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ref as mref
+    u, dt, a, bb, c, h0 = _scan(card, b, s, di, n, dtype, s + di, carried)
+    y, h = mk.selective_scan_3d(u, dt, a, bb, c, h0)
+    want_y, want_h = mref.selective_scan(
+        u, dt, a, bb, c, h0 if carried else
+        torch.zeros((b, di, n), device=card))
+    assert_scan_close(y, h, want_y, want_h, dtype)
+
+
+def test_scans_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    r, k, v, w, u, s0 = _wkv(card, 1, 8, 2, 32, 1)
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv6_4d(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="head dim"):
+        wk.wkv6_4d(*_wkv(card, 1, 8, 2, 48, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6_4d(r.transpose(1, 2), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wk.wkv6_4d(r, k, v, w, u.cpu(), s0)
+    xs = _scan(card, 1, 8, 64, 8, torch.float32, 3)
+    with pytest.raises(TypeError, match="one dtype"):
+        mk.selective_scan_3d(xs[0].bfloat16(), *xs[1:])
+    big = _scan(card, 1, 8, 64, 17, torch.float32, 4)
+    with pytest.raises(ValueError, match="N <= 16"):
+        mk.selective_scan_3d(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.selective_scan_3d(xs[0], xs[1], xs[2], xs[3].transpose(0, 1),
+                             *xs[4:])
+
+
+def test_scan_ops_route_cuda_tensors_to_the_kernels(card):
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ops as mops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    before = (wk.launches, mk.launches)
+    r, k, v, w, u, _ = _wkv(card, 1, 5, 2, 16, 5, carried=False)
+    y, sf = wops.wkv6(r, k, v, w, u)
+    xs = _scan(card, 1, 5, 32, 8, torch.bfloat16, 6, carried=False)
+    ys, hs = mops.selective_scan(*xs[:5])
+    assert (wk.launches, mk.launches) == (before[0] + 1, before[1] + 1)
+    want_y, want_s = wops.wkv6(*(x.cpu() for x in (r, k, v, w, u)))
+    torch.testing.assert_close(y.cpu(), want_y, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(sf.cpu(), want_s, atol=WKV_TOL, rtol=WKV_TOL)
+    want_ys, want_hs = mops.selective_scan(*(x.cpu() for x in xs[:5]))
+    assert want_ys.dtype == ys.dtype == torch.bfloat16
+    torch.testing.assert_close(hs.cpu(), want_hs, atol=SCAN_TOL,
+                               rtol=SCAN_TOL)
+    assert (wk.launches, mk.launches) == (before[0] + 1, before[1] + 1)
+    wk.reset_launch_count()
+    mk.reset_launch_count()
+    assert (wk.launches, mk.launches) == (0, 0)

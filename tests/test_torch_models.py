@@ -41,8 +41,9 @@ from repro_torch.models import attention, convert, layers, registry
 from repro_torch.sharding import logical as L
 
 DENSE = ["qwen2-1.5b", "deepseek-coder-33b", "command-r-35b", "internvl2-2b"]
-UNPORTED = ["olmoe-1b-7b", "deepseek-moe-16b", "rwkv6-7b", "jamba-v0.1-52b",
-            "seamless-m4t-medium"]
+# the recurrent, hybrid and MoE families (tests/test_torch_families.py)
+FAMILIES = ["rwkv6-7b", "jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-moe-16b"]
+UNPORTED = ["seamless-m4t-medium"]
 EAGER_TOL, COMPILED_TOL = 1e-2, 5e-2
 B, S, CACHE = 2, 12, 24
 
@@ -113,7 +114,7 @@ def test_configs_are_the_references(arch):
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
-@pytest.mark.parametrize("arch", DENSE + ["command-r-plus-104b"])
+@pytest.mark.parametrize("arch", DENSE + ["command-r-plus-104b"] + FAMILIES)
 def test_spec_trees_match(arch, reduced):
     """Names, shapes, axes, dtypes and initializers of every parameter and
     cache leaf, at the reduced and the published widths."""

@@ -110,7 +110,8 @@ def _check_steps(want, got, want_toks, tol):
 
 
 @pytest.mark.parametrize("impl", ["reference", "flash"])
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "internvl2-2b", "rwkv6-7b",
+                                  "jamba-v0.1-52b"])
 def test_steps_match_the_eager_reference_session(arch, impl):
     jsess, sess = _sessions(arch, attn_impl=impl)
     reqs = _requests(sess.cfg.vocab_size, 1)
@@ -216,9 +217,11 @@ def test_one_time_cast_is_bitwise_the_per_call_cast():
 @pytest.mark.parametrize("arch,overrides", [
     ("qwen2-1.5b", {}), ("qwen2-1.5b", {"qk_norm": True}),
     ("deepseek-coder-33b", {}), ("command-r-plus-104b", {}),
-    ("internvl2-2b", {})])
+    ("internvl2-2b", {}), ("rwkv6-7b", {}), ("jamba-v0.1-52b", {}),
+    ("olmoe-1b-7b", {}), ("deepseek-moe-16b", {})])
 def test_one_time_cast_is_bitwise_for_every_dense_arch(arch, overrides):
-    """Every ported arch (and QK-norm) reads in float32 only the leaves
+    """Every ported arch (the dense family, QK-norm, and the recurrent,
+    hybrid and MoE families) reads in float32 only the leaves
     ``lm.FLOAT32_LEAVES`` names: casting all the others once gives the
     per-call cast's bits, and every float32 leaf left lies under a name
     in that set."""

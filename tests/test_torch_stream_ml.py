@@ -174,6 +174,58 @@ def test_scores_match_the_reference_on_its_params(slide):
             ml._LOADED[key] = saved
 
 
+@pytest.mark.parametrize("alias", ["moe", "rwkv6", "mamba"])
+def test_family_aliases_score_bitwise_and_as_the_reference(alias):
+    """The MoE, RWKV6 and Mamba aliases score through their reduced
+    configs (plain attention and scans, as the reference's island runs
+    them): bitwise the port's direct forward on the island's own params;
+    on the reference's params carried across, within 1e-3 relative of the
+    reference's island run eagerly and within 2e-3 of it as it runs
+    (compiled).  Where the reference's own two runs part by more than
+    that (Jamba's MoE: a router's near-tie that XLA's fused float32 tips
+    the other way; ROADMAP.md §3), the port is held to their distance
+    plus 1e-3."""
+    arch = ml.resolve_arch(alias)
+    rows = _rows(2 * W, seed=17)
+    q = f"bdml(infer(window(vitals.hr, {W}, {W}), models.{alias}))"
+    bd = default_deployment(device="cpu")
+    bd.register_model(alias, arch=arch)
+    bd.register_stream("streamstore0", StreamSpec("vitals.hr", ("ts", "hr"),
+                                                  capacity=64))
+    bd.engines["streamstore0"].get("vitals.hr").append(rows)
+    got = bd.query(q).value.columns["score"]
+    for i in range(2):
+        assert torch.equal(got[i], direct_score(
+            rows["hr"][i * W:(i + 1) * W], arch=arch))
+
+    jcfg = jreg.get_config(arch, reduced=True)
+    jparams = JL.init_params(jax.random.PRNGKey(0), jreg.param_specs(jcfg))
+    key = (arch, 0, "cpu")
+    saved = ml._LOADED.pop(key)
+    ml._LOADED[key] = ml._Loaded(
+        cfg=registry.get_config(arch, reduced=True),
+        params=convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                         "cpu"))
+    try:
+        want = {}
+        for mode in ("compiled", "eager"):
+            jbd = jax_deployment()
+            jbd.register_model(alias, arch=arch)
+            jbd.register_stream("streamstore0", JStreamSpec(
+                "vitals.hr", ("ts", "hr"), capacity=64))
+            jbd.engines["streamstore0"].get("vitals.hr").append(rows)
+            with jax.disable_jit(mode == "eager"):
+                want[mode] = np.asarray(jbd.query(q).value.columns["score"])
+        got = bd.query(q).value.columns["score"].numpy()
+        np.testing.assert_allclose(got, want["eager"], rtol=1e-3)
+        split = np.abs(want["eager"] - want["compiled"])
+        bound = np.maximum(2e-3 * np.abs(want["compiled"]),
+                           split + 1e-3 * np.abs(want["compiled"]))
+        assert (np.abs(got - want["compiled"]) <= bound).all()
+    finally:
+        ml._LOADED[key] = saved
+
+
 # -- wave scheduling ----------------------------------------------------------
 def test_standing_infer_queries_share_one_wave_per_tick():
     bd = _deploy(StreamSpec("vitals.hr", ("ts", "hr"), capacity=64))
@@ -239,9 +291,7 @@ def test_unknown_model_and_bad_args():
         ml.execute_ml(bd.engines["mlhost0"], "predict(x, models.lm)")
 
 
-@pytest.mark.parametrize("alias,arch", [
-    ("moe", "olmoe-1b-7b"), ("rwkv6", "rwkv6-7b"),
-    ("mamba", "jamba-v0.1-52b"), ("audio", "seamless-m4t-medium")])
+@pytest.mark.parametrize("alias,arch", [("audio", "seamless-m4t-medium")])
 def test_unported_families_raise(alias, arch):
     bd = _deploy(StreamSpec("vitals.hr", ("ts", "hr"), capacity=64))
     bd.register_model(alias, arch=arch)
