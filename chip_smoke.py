@@ -8,7 +8,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
 without them.  It prints one JSON object per line:
 
 1. build     builds the CUDA kernels from the sources in the checkout,
-             one nvcc for each of the five libraries, all started
+             one nvcc for each of the six libraries, all started
              together;
 2. parity    holds each kernel against its plain PyTorch version on the
              card, bitwise: quant_cast on small shapes, an all-zero
@@ -50,16 +50,21 @@ without them.  It prints one JSON object per line:
              export's share of the join's ticks (host, from the trace
              spans) and one join's card time by kernel and copy
              (torch.profiler);
-6. flash     flash attention against its plain version on the card: the
-             shapes of tests/test_kernels.py, the serve shape (8, 1024,
-             12, 128) in f32 and bf16, a ragged (1, 1000, 12, 128) in f32
-             and bf16, and full (non-causal) attention; then the serve
-             and ragged shapes again with scores of standard deviation
-             ~300 (integer q and k, so every score is exact in float32 on
-             both sides), the scale the reference's initializer gives at
-             full width, where every softmax saturates and an error in
-             the running max or its rescale would show; 2e-5 for f32,
-             2e-2 for bf16, as tests/test_kernels.py;
+6. flash     flash attention against its plain version on the card, each
+             case through the kernel its dtype and head dim route it to
+             (the tensor-core kernel for bf16 at head dim 64 or 128, the
+             CUDA-core one for f32 and head dims 16 and 32), checked by
+             the route's launch count: the shapes of tests/test_kernels.py,
+             the serve shape (8, 1024, 12, 128) in f32 and bf16, a ragged
+             (1, 1000, 12, 128) in f32 and bf16, S = 1, 63, 65 and 2,048,
+             Jamba's GQA ratio (32/8 heads), and full (non-causal)
+             attention; then the serve and ragged shapes again with scores
+             of standard deviation ~300 (integer q and k, so every score
+             is exact in float32 on both sides), the scale the
+             reference's initializer gives at full width, where every
+             softmax saturates and an error in the running max or its
+             rescale would show; 2e-5 for f32, 2e-2 for bf16, as
+             tests/test_kernels.py;
 7. scans     rwkv6_scan and mamba_scan against their plain versions on
              the card: the shapes of tests/test_kernels.py with and
              without a carried state, ragged S (1,000) and S = 1, and the
@@ -75,7 +80,8 @@ without them.  It prints one JSON object per line:
              1,024-token prompts and a wave of eight 600-1,000-token
              prompts left-padded to 1,000 (off the 128 grid), 32 new
              tokens each; every prefill's attention through the flash
-             kernel (28 launches a prefill), the flash prefill against
+             kernel's tensor-core route (28 launches a prefill), the
+             flash prefill against
              the plain attention path (5e-2 of the largest logit, the
              bound of tests/test_decode_consistency.py), the last decode
              step against a full forward, the first wave bitwise
@@ -111,7 +117,11 @@ without them.  It prints one JSON object per line:
              launches on its path (phases 3-4 for quant_cast, phase 5 for
              the streaming kernels, phases 8 and 9 for flash attention,
              phase 9 for the scans); for join_bounds also the time its
-             chains of dependent loads set, from a lone key's levels;
+             chains of dependent loads set, from a lone key's levels; for
+             flash attention its tensor-core route at Qwen2's and Jamba's
+             shapes, the CUDA-core route in f32, the tensor-core kernel's
+             registers and spills (ptxas) and whether its machine code
+             holds wgmma (HGMMA) and TMA loads (UTMALDG);
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
@@ -233,13 +243,13 @@ def build() -> None:
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
     from repro_torch.kernels.stream import stream as sk
     t0 = time.perf_counter()
-    libs = (k, sk, fk, wk, mk)
-    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
-        for lib in [pool.submit(m.load) for m in libs]:
+    loads = (k.load, sk.load, fk.load, fk.load_sm90, wk.load, mk.load)
+    with ThreadPoolExecutor(max_workers=len(loads)) as pool:
+        for lib in [pool.submit(load) for load in loads]:
             lib.result()
     seconds = time.perf_counter() - t0
-    for name in ("quant_cast", "stream", "flash_attention", "rwkv6_scan",
-                 "mamba_scan"):
+    for name in ("quant_cast", "stream", "flash_attention",
+                 "flash_attention_sm90", "rwkv6_scan", "mamba_scan"):
         ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(name,
                                                             "").splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -841,7 +851,9 @@ def _qkv_wide(b, s, t, hq, hkv, dh, dtype, seed):
             for x in arrays]
 
 
-def flash_parity() -> float:
+def flash_parity() -> dict:
+    """Each case through its route's kernel (checked by the route's launch
+    count) against the plain version; the worst |err| of each route."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ref
     b, s, hq, hkv, dh = SERVE_SHAPE
@@ -856,29 +868,51 @@ def flash_parity() -> float:
               ((1, 1000, 1000, hq, hkv, dh), torch.bfloat16, True),
               ((1, 128, 128, 2, 2, 64), torch.float32, False),
               ((b, s, s, hq, hkv, dh), torch.bfloat16, False)]
+    # S off the tile grid: one row, one short of and one past half a
+    # 128-row tile; two tiles of the serve shape's width; Jamba's 32/8
+    cases += [((2, ss, ss, hq, hkv, d), dt, True)
+              for ss, d in ((1, 128), (63, 128), (65, 64), (2048, 128))
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [((2, 256, 256, 32, 8, dh), dt, causal)
+              for dt in (torch.float32, torch.bfloat16)
+              for causal in (True, False)]
     cases = [c + (False,) for c in cases]
     cases += [((b, s, s, hq, hkv, dh), dt, causal, True)
               for dt in (torch.float32, torch.bfloat16)
               for causal in (True, False)]
     cases += [((1, 1000, 1000, hq, hkv, dh), dt, True, True)
               for dt in (torch.float32, torch.bfloat16)]
-    worst = 0.0
+    worst = {fk.TENSOR_CORE: 0.0, fk.CUDA_CORE: 0.0}
     for i, (shape, dtype, causal, wide) in enumerate(cases):
         q, k, v = (_qkv_wide if wide else _qkv)(*shape, dtype, 60 + i)
+        which = fk.route(dtype, shape[-1])
+        before = _route_counts()
         got = fk.flash_attention_4d(q, k, v, causal)
         want = ref.gqa_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        after = _route_counts()
+        check(after[which] == before[which] + 1 and
+              sum(after.values()) == sum(before.values()) + 1,
+              f"flash_attention at {shape} {dtype} did not take the "
+              f"{which} route: {before} -> {after}")
         err = float((got.float() - want.float()).abs().max())
         tol = FLASH_TOL[dtype]
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"flash_attention differs from the plain version at {shape} "
-              f"{dtype} causal={causal} wide={wide}: max |err| {err}")
-        worst = max(worst, err)
+              f"flash_attention ({which}) differs from the plain version "
+              f"at {shape} {dtype} causal={causal} wide={wide}: max |err| "
+              f"{err}")
+        worst[which] = max(worst[which], err)
         emit({"phase": "parity", "kernel": "flash_attention",
-              "case": list(shape), "dtype": str(dtype), "causal": causal,
-              "scores": "std~300" if wide else "unit", "max_abs_err": err,
-              "tol": tol})
+              "route": which, "case": list(shape), "dtype": str(dtype),
+              "causal": causal, "scores": "std~300" if wide else "unit",
+              "max_abs_err": err, "tol": tol})
     return worst
+
+
+def _route_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    return {fk.TENSOR_CORE: fk.tensor_core_launches,
+            fk.CUDA_CORE: fk.cuda_core_launches}
 
 
 # -- 7. the scans against their plain versions ---------------------------------------
@@ -1146,6 +1180,7 @@ def serve_phase() -> dict:
     done = schedule([wave_a, wave_b])
     torch.cuda.synchronize()
     launches = fk.launches                    # ... and ends here
+    routes = _route_counts()
     n = SERVE["max_batch"]
     done_a, done_b = done[:n], done[n:]
     rel_b = _decode_vs_forward(session, wave_b, done_b)
@@ -1179,7 +1214,8 @@ def serve_phase() -> dict:
     emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "serve_config": SERVE, "waves": waves,
-          "flash_launches": launches, "flash_prefills": 2,
+          "flash_launches": launches, "flash_launches_by_route": routes,
+          "flash_prefills": 2,
           "prefill_flash_vs_plain_rel": rel_prefill,
           "decode_vs_forward_rel": {"A": rel_a, "B": rel_b},
           "wave_a_repeatable": repeat,
@@ -1187,6 +1223,8 @@ def serve_phase() -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     check(launches == cfg.num_layers * 2,
           f"flash launches {launches} != 28 x 2 prefills")
+    check(routes[fk.TENSOR_CORE] == launches,
+          f"flash launches off the tensor-core route: {routes}")
     check(rel_prefill <= LOGIT_TOL,
           f"flash prefill vs plain attention: {rel_prefill}")
     check(rel_a <= LOGIT_TOL and rel_b <= LOGIT_TOL,
@@ -1197,7 +1235,8 @@ def serve_phase() -> dict:
     check(all(c.tokens.shape == (SERVE["max_new_tokens"],) for c in done),
           "completions: wrong token counts")
     emit({"phase": "serve", "checks": "passed"})
-    return {"launches": launches}
+    return {"launches": launches,
+            "prefill_s": {w: waves[w]["prefill_s"] for w in ("A", "B")}}
 
 
 # -- 9. serving RWKV6-7B and Jamba at full width ------------------------------------
@@ -1291,8 +1330,9 @@ def _model_counts() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
-    return {"flash_attention": fk.launches, "rwkv6_scan": wk.launches,
-            "mamba_scan": mk.launches}
+    return {"flash_attention": fk.launches,
+            "flash_attention_tensor_core": fk.tensor_core_launches,
+            "rwkv6_scan": wk.launches, "mamba_scan": mk.launches}
 
 
 def family_serve_phase(arch: str, ragged: bool, must_launch,
@@ -1365,6 +1405,9 @@ def family_serve_phase(arch: str, ragged: bool, must_launch,
     for name in must_launch:
         check(launches[name] > 0, f"{cfg.name}: no {name} launch on its "
                                   f"serve path")
+    check(launches["flash_attention_tensor_core"] ==
+          launches["flash_attention"],
+          f"{cfg.name}: flash launches off the tensor-core route: {launches}")
     check(max(rel_prefill) <= LOGIT_TOL,
           f"{cfg.name}: kernel prefill vs plain prefill {rel_prefill}")
     check(max(rel_decode) <= LOGIT_TOL,
@@ -1655,58 +1698,107 @@ def stream_kernel_rows(launches: dict, err: dict) -> list:
     return rows
 
 
-def flash_kernel_rows(launches: int, err: float) -> list:
-    """flash_attention at the serve shape in bf16 (causal, two input sets
-    of 33 MB rotating): the kernel, its plain version, and
-    scaled_dot_product_attention (checked against the plain version
-    first; timed only, the port never calls it)."""
+def _flash_bound(b, s, hq, hkv, dh) -> dict:
+    """Read q, k and v once and write o, in bf16; QK^T and P.V over the
+    causal half: 2 x 2 x Dh operations for each of Hq x S(S+1)/2 pairs,
+    at the bf16 tensor-core rate."""
+    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+    ops = 4 * b * hq * dh * s * (s + 1) // 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def _sm90_machine_code() -> dict:
+    """The tensor-core kernel's ptxas report (registers, spills) and how
+    many wgmma (HGMMA) and TMA load (UTMALDG) instructions
+    ``cuobjdump -sass`` finds in its built library."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    path = _build.library_path("flash_attention_sm90", fk.SM90_SOURCES)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(
+        "flash_attention_sm90", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    return {"ptxas": ptxas, "sass_HGMMA": sass.count("HGMMA"),
+            "sass_UTMALDG": sass.count("UTMALDG")}
+
+
+def flash_kernel_rows(launches: int, err: dict) -> list:
+    """flash_attention's tensor-core route (the main path's) at the serve
+    shape and at Jamba's (8, 1,024, 32/8, 128), causal bf16, two input sets
+    rotating past the L2: the kernel and scaled_dot_product_attention, each
+    held against the plain version at that shape first (the library call is
+    timed only, the port never calls it), and the plain version; the
+    CUDA-core route in f32 at the serve shape; the tensor-core kernel's
+    machine code."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ref
     b, s, hq, hkv, dh = SERVE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    sets = {dt: [[torch.randn(shape, generator=gen, device="cuda").to(dt)
-                  for shape in ((b, s, hq, dh), (b, s, hkv, dh),
-                                (b, s, hkv, dh))] for _ in range(2)]
-            for dt in (torch.bfloat16, torch.float32)}
-    bf16 = sets[torch.bfloat16]
+
+    def draw(heads, kv_heads, dt):
+        return [[torch.randn(shape, generator=gen, device="cuda").to(dt)
+                 for shape in ((b, s, heads, dh), (b, s, kv_heads, dh),
+                               (b, s, kv_heads, dh))] for _ in range(2)]
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
-    check(torch.allclose(sdpa(*bf16[0]).float(),
-                         ref.gqa_attention(*bf16[0]).float(),
-                         atol=2e-2, rtol=2e-2),
-          "scaled_dot_product_attention differs from the plain version")
-    ms = _graph_ms([lambda x=x: fk.flash_attention_4d(*x, True)
-                    for x in bf16])
-    ms_f32 = _graph_ms([lambda x=x: fk.flash_attention_4d(*x, True)
-                        for x in sets[torch.float32]])
-    plain_ms = _graph_ms([lambda x=x: ref.gqa_attention(*x, causal=True)
-                          for x in bf16], reps=4)
-    library_ms = _graph_ms([lambda x=x: sdpa(*x) for x in bf16])
-    # read q, k and v once and write o, in bf16; QK^T and P.V over the
-    # causal half: 2 x 2 x Dh operations for each of Hq x S(S+1)/2 pairs
-    nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
-    ops = 4 * b * hq * dh * s * (s + 1) // 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_OPS_PER_S * 1e3
+
+    shapes = {"qwen2": (hq, hkv), "jamba": (32, 8)}
+    times = {}
+    for name, (heads, kv_heads) in shapes.items():
+        bf16 = draw(heads, kv_heads, torch.bfloat16)
+        check(fk.route(torch.bfloat16, dh) == fk.TENSOR_CORE,
+              "the serve shape's bf16 does not route to the tensor cores")
+        want = ref.gqa_attention(*bf16[0], causal=True).float()
+        got = fk.flash_attention_4d(*bf16[0], True).float()
+        check(torch.allclose(got, want, atol=FLASH_TOL[torch.bfloat16],
+                             rtol=FLASH_TOL[torch.bfloat16]),
+              f"flash_attention differs from the plain version at {name}'s "
+              f"shape")
+        check(torch.allclose(sdpa(*bf16[0]).float(), want,
+                             atol=2e-2, rtol=2e-2),
+              "scaled_dot_product_attention differs from the plain version")
+        times[name] = {
+            "shape": [b, s, heads, kv_heads, dh],
+            "max_abs_err_at_shape": (got - want).abs().max().item(),
+            "ms": _graph_ms([lambda x=x: fk.flash_attention_4d(*x, True)
+                             for x in bf16]),
+            "plain_ms": _graph_ms([lambda x=x: ref.gqa_attention(
+                *x, causal=True) for x in bf16], reps=2),
+            "library_ms": _graph_ms([lambda x=x: sdpa(*x) for x in bf16]),
+            **_flash_bound(b, s, heads, kv_heads, dh)}
+        del want, got
+        if name == "qwen2":
+            f32 = draw(heads, kv_heads, torch.float32)
+            check(fk.route(torch.float32, dh) == fk.CUDA_CORE,
+                  "f32 does not route to the CUDA cores")
+            times[name]["ms_f32"] = _graph_ms(
+                [lambda x=x: fk.flash_attention_4d(*x, True) for x in f32])
+            del f32
+        del bf16
+    serve = times.pop("qwen2")
     return [{"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_attention.cu",
+                       "flash_attention_sm90.cu",
+             "source_cuda_core": "src/repro_torch/kernels/flash_attention/"
+                                 "csrc/flash_attention.cu",
              "replaces": f"{FLASH_REPLACES}:31",
-             "launches": launches, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "library_ms": library_ms,
+             "launches": launches, "max_abs_err": err[fk.TENSOR_CORE],
+             "max_abs_err_cuda_core": err[fk.CUDA_CORE],
+             **serve,
              "library": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
-             "shape": list(SERVE_SHAPE), "dtype": "bfloat16",
-             "bytes": nbytes, "operations": ops, "ms_f32": ms_f32,
-             "note": ("float32 math on the CUDA cores (67 TFLOP/s peak) "
-                      "against a bound at the bf16 tensor-core rate")}]
+             "dtype": "bfloat16", "jamba": times["jamba"],
+             **_sm90_machine_code()}]
 
 
 def _f32_bound(nbytes: int, ops: int) -> dict:
@@ -1852,6 +1944,7 @@ def main() -> int:
                               flash_err)
     rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],
                                     "serve_jamba": jamba["flash_attention"]}
+    rows[-1]["qwen2_prefill_s"] = serve["prefill_s"]
     rows += scan_kernel_rows({"rwkv6_scan": rwkv["rwkv6_scan"],
                               "mamba_scan": jamba["mamba_scan"]}, scan_err)
     emit({"kernels": rows})

@@ -73,11 +73,16 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """Where the build of library ``name`` from ``sources`` lies."""
+    return BUILD_DIR / f"{name}-{_digest([Path(s) for s in sources])}.so"
+
+
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """The ``ctypes`` handle of library ``name`` built from ``sources``,
     building it first if no build of these exact sources exists."""
-    sources = [Path(s) for s in sources]
-    key = f"{name}-{_digest(sources)}"
+    target = library_path(name, sources)
+    key = target.stem
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is not None:
@@ -88,7 +93,6 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
             lib = _LIBS.get(key)
         if lib is not None:
             return lib
-        target = BUILD_DIR / f"{key}.so"
         if not target.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -151,6 +151,23 @@ def _qkv(card, b, s, t, hq, hkv, dh, dtype, seed):
         for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
 
 
+def _routes():
+    return {fk.TENSOR_CORE: fk.tensor_core_launches,
+            fk.CUDA_CORE: fk.cuda_core_launches}
+
+
+def _flash_on_its_route(q, k, v, causal):
+    """One launch of flash_attention_4d, checked to have gone through the
+    kernel that its dtype and head dim route it to."""
+    which = fk.route(q.dtype, q.shape[-1])
+    before = _routes()
+    got = fk.flash_attention_4d(q, k, v, causal)
+    after = _routes()
+    assert after[which] == before[which] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    return got
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -159,12 +176,14 @@ def _qkv(card, b, s, t, hq, hkv, dh, dtype, seed):
     (1, 512, 512, 8, 2, 128), (2, 128, 128, 6, 3, 32),
     (1, 384, 384, 2, 1, 128), (1, 100, 100, 2, 1, 16),
     (1, 1000, 1000, 12, 2, 128), (2, 200, 72, 4, 2, 64),
-    (1, 72, 200, 4, 2, 32)])
+    (1, 72, 200, 4, 2, 32), (2, 1, 1, 4, 2, 128), (2, 63, 63, 4, 2, 128),
+    (2, 65, 65, 4, 2, 64), (1, 2048, 2048, 4, 1, 128),
+    (2, 256, 256, 32, 8, 128)])
 def test_flash_attention_matches_plain_version_on_card(card, b, s, t, hq,
                                                       hkv, dh, dtype,
                                                       causal):
     q, k, v = _qkv(card, b, s, t, hq, hkv, dh, dtype, s + t + dh)
-    got = fk.flash_attention_4d(q, k, v, causal)
+    got = _flash_on_its_route(q, k, v, causal)
     want = fref.gqa_attention(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
@@ -176,7 +195,8 @@ def test_flash_attention_matches_plain_version_on_card(card, b, s, t, hq,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh", [
     (2, 256, 256, 12, 2, 128), (1, 1000, 1000, 12, 2, 128),
-    (2, 200, 72, 4, 2, 64)])
+    (2, 200, 72, 4, 2, 64), (2, 63, 63, 4, 2, 128),
+    (1, 2048, 2048, 4, 1, 128)])
 def test_flash_attention_holds_at_saturated_scores_on_card(card, b, s, t, hq,
                                                           hkv, dh, dtype,
                                                           causal):
@@ -189,7 +209,7 @@ def test_flash_attention_holds_at_saturated_scores_on_card(card, b, s, t, hq,
                for x in (rng.integers(-30, 31, (b, s, hq, dh)),
                          rng.integers(-30, 31, (b, t, hkv, dh)),
                          rng.standard_normal((b, t, hkv, dh)))]
-    got = fk.flash_attention_4d(q, k, v, causal)
+    got = _flash_on_its_route(q, k, v, causal)
     want = fref.gqa_attention(q, k, v, causal=causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -213,6 +233,50 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
         fk.flash_attention_4d(q.cpu(), k, v, True)
 
 
+@pytest.mark.parametrize("dtype,dh,which", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.float32, 128, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 32, "cuda_core")])
+def test_flash_attention_routes_by_dtype_and_head_dim(card, dtype, dh,
+                                                      which):
+    q, k, v = _qkv(card, 2, 96, 96, 4, 2, dh, dtype, 5)
+    assert fk.route(dtype, dh) == which
+    before = _routes()
+    fk.flash_attention_4d(q, k, v, True)
+    after = _routes()
+    assert after[which] == before[which] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+def test_flash_attention_launches_under_graph_capture(card):
+    """Both routes build nothing and allocate nothing but the output in a
+    launch, so a CUDA graph captures them and replays them on new
+    inputs copied into the captured ones."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(card, 2, 256, 256, 4, 2, 128, dtype, 6)
+        fk.flash_attention_4d(q, k, v, True)           # warm: build, attrs
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fk.flash_attention_4d(q, k, v, True)
+        for seed in (7, 8):
+            for dst, src in zip((q, k, v), _qkv(card, 2, 256, 256, 4, 2, 128,
+                                                dtype, seed)):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dtype]
+            torch.testing.assert_close(
+                out.float(), fref.gqa_attention(q, k, v).float(), atol=tol,
+                rtol=tol)
+
+
+def test_flash_attention_is_bitwise_repeatable(card):
+    q, k, v = _qkv(card, 8, 1024, 1024, 12, 2, 128, torch.bfloat16, 9)
+    first = fk.flash_attention_4d(q, k, v, True)
+    assert torch.equal(first, fk.flash_attention_4d(q, k, v, True))
+
+
 def test_flash_ops_route_cuda_tensors_to_the_kernel(card):
     q, k, v = _qkv(card, 2, 96, 96, 4, 2, 64, torch.bfloat16, 4)
     before = fk.launches
@@ -221,7 +285,8 @@ def test_flash_ops_route_cuda_tensors_to_the_kernel(card):
     fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
     assert fk.launches == before + 1
     fk.reset_launch_count()
-    assert fk.launches == 0
+    assert fk.launches == 0 and _routes() == {fk.TENSOR_CORE: 0,
+                                              fk.CUDA_CORE: 0}
     torch.testing.assert_close(got.float(), fref.gqa_attention(
         q, k, v, causal=True).float(), atol=2e-2, rtol=2e-2)
 
