@@ -66,13 +66,20 @@ without them.  It prints one JSON object per line:
              rescale would show; 2e-5 for f32, 2e-2 for bf16, as
              tests/test_kernels.py;
 7. scans     rwkv6_scan and mamba_scan against their plain versions on
-             the card: the shapes of tests/test_kernels.py with and
-             without a carried state, ragged S (1,000) and S = 1, and the
-             serve shapes (rwkv (8, 1024, 64, 64) f32 at RWKV6-7B's
-             full-width decays, where the TPU kernel's chunked form
-             underflows, and at decays near 1 and near 0; mamba (8, 1024,
-             8192, 16) in bf16 and f32); 5e-4 and 5e-5, a bf16 y to one
-             bf16 rounding;
+             the card (float64): rwkv6_scan through both routes, each case
+             checked by its route counter (per-token at S = 1 and 15,
+             chunked at the shapes of tests/test_kernels.py, a ragged S of
+             1,000 and the serve shape (8, 1024, 64, 64) f32), with decays
+             at RWKV6-7B's full width (where the TPU kernel's chunked form
+             underflows), near 1, near 0 and at the edges (0, 1e-30,
+             1 - 1e-7, 1), carried and not; mamba_scan at the shapes of
+             tests/test_kernels.py, S = 1, ragged S, Di off the block
+             grid, N < 16, decays at full width, near 1, near 0 and at the
+             edges (through A at a small dt, and through a large dt,
+             where the kernel and the plain float32 scans are also held
+             to a bound on float32's rounding), and the serve shape (8,
+             1024, 8192, 16) in bf16 and f32; 5e-4 and 5e-5, a bf16 y to
+             one bf16 rounding;
 8. serve     Qwen2-1.5B at its published width (28 layers, d_model 1536,
              vocab 151936; float32 params drawn on the card from seed 0,
              the attention projections rescaled to their true fan-in,
@@ -97,7 +104,9 @@ without them.  It prints one JSON object per line:
              attn_impl="flash", served
              through ``Scheduler`` (RWKV6: waves A and B as phase 8's;
              Jamba: wave A), 16 new tokens each: each scan launched on its
-             path (and flash attention in Jamba's), the prefill through
+             path in prefill and in decode (rwkv6_scan's chunked and
+             per-token routes), and flash attention in Jamba's; the
+             prefill through
              the kernels against the plain path's prefill and the last
              decode step against a full forward through the plain path,
              5e-2 of the largest logit, row by row; prefill and decode
@@ -116,8 +125,13 @@ without them.  It prints one JSON object per line:
              that computes the same function where there is one, and its
              launches on its path (phases 3-4 for quant_cast, phase 5 for
              the streaming kernels, phases 8 and 9 for flash attention,
-             phase 9 for the scans); for join_bounds also the time its
-             chains of dependent loads set, from a lone key's levels; for
+             phase 9 for the scans, by route); for the scans also their
+             time at S = 1 beside the state's bytes, mamba_scan's exp
+             floor on the SFUs, the models' prefill seconds, ptxas's
+             registers and spills and their SASS hot loops
+             (repro_torch.kernels._sass); for join_bounds
+             also the time its chains of dependent loads set, from a lone
+             key's levels; for
              flash attention its tensor-core route at Qwen2's and Jamba's
              shapes, the CUDA-core route in f32, the tensor-core kernel's
              registers and spills (ptxas) and whether its machine code
@@ -147,6 +161,8 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12                          # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12                          # f64 outside the tensor cores
 BF16_OPS_PER_S = 989e12                        # bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12                        # tf32 tensor cores, dense
+SFU_EX2_PER_CLOCK = 16                         # MUFU.EX2 an SM a clock
 REPLACES = "src/repro/kernels/quant_cast/quant_cast.py"
 STREAM_REPLACES = "src/repro/stream/kernels.py"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py"
@@ -916,11 +932,16 @@ def _route_counts() -> dict:
 
 
 # -- 7. the scans against their plain versions ---------------------------------------
+EDGE_DECAYS = (0.0, 1e-30, 1.0 - 1e-7, 1.0)
+DECAYS = ("full_width", "near_1", "near_0", "edges")
+
+
 def _wkv_inputs(b, s, h, d, decays, seed, carried=True):
     """r, k, v standard normal; decays uniform in [0.85, 0.999] (the
     sweep's), as RWKV6-7B's initializer gives them at full width
     (exp(-exp(0.63 z)): down to ~1e-8, where the TPU kernel's chunked form
-    underflows), or near 1 or near 0."""
+    underflows), near 1, near 0, or drawn from the edges 0, 1e-30,
+    1 - 1e-7 and 1."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (b, s, h, d)
     r, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -930,21 +951,47 @@ def _wkv_inputs(b, s, h, d, decays, seed, carried=True):
          "full_width": lambda: torch.exp(-torch.exp(0.63 * torch.randn(
              shape, generator=gen, device="cuda"))),
          "near_1": lambda: 1.0 - 1e-4 * z,
-         "near_0": lambda: 1e-6 * z}[decays]()
+         "near_0": lambda: 1e-6 * z,
+         "edges": lambda: torch.tensor(EDGE_DECAYS, device="cuda")[
+             (4 * z).long().clamp(max=3)]}[decays]()
     u = torch.randn((h, d), generator=gen, device="cuda")
     s0 = (0.3 * torch.randn((b, h, d, d), generator=gen, device="cuda")
           if carried else None)
     return r, k, v, w, u, s0
 
 
-def _scan_inputs(b, s, di, n, dtype, seed, carried=True):
+def _scan_inputs(b, s, di, n, dtype, seed, carried=True, decays="sweep"):
     """u standard normal; dt uniform in [0.001, 0.1] with A in [-2, -0.5]
-    (the sweep's), the inputs cast to ``dtype``; h0 float32."""
+    (the sweep's); A = -1 (a_log at the reference's initializer) with
+    dt = softplus(z) (the model's, at full width) or dt below 1e-4
+    (decays near 1); dt in [0.05, 0.1] with A in [-300, -200] (decays
+    e^-10 to e^-30); or the edges, dt drawn from 0, 1e-7 and 0.1 and A
+    cycling over the states through -1, -690.8, -1e30 and -1 (decays of
+    1, 1 - 1e-7, ~1e-30 and exactly 0), where dt stays small and y near
+    unit scale; or the same edges reached through a large dt, drawn from
+    0, 1e-7, 69.08 and 200 with A = -1, where h grows to ~200 and y to
+    ~10^4, sums of terms that may cancel.  The inputs are cast to
+    ``dtype``, h0 float32."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.randn((b, s, di), generator=gen, device="cuda").to(dtype)
-    dt = (0.001 + 0.099 * torch.rand((b, s, di), generator=gen,
-                                     device="cuda")).to(dtype)
-    a = -(0.5 + 1.5 * torch.rand((di, n), generator=gen, device="cuda"))
+    z = torch.rand((b, s, di), generator=gen, device="cuda")
+    dt = {"sweep": lambda: 0.001 + 0.099 * z,
+          "full_width": lambda: torch.nn.functional.softplus(torch.randn(
+              (b, s, di), generator=gen, device="cuda")),
+          "near_1": lambda: 1e-4 * z,
+          "near_0": lambda: 0.05 + 0.05 * z,
+          "edges": lambda: torch.tensor((0.0, 1e-7, 0.1), device="cuda")[
+              (3 * z).long().clamp(max=2)],
+          "large_dt": lambda: torch.tensor(
+              (0.0, 1e-7, 69.0776, 200.0), device="cuda")[
+              (4 * z).long().clamp(max=3)]}[decays]().to(dtype)
+    za = torch.rand((di, n), generator=gen, device="cuda")
+    a = {"sweep": lambda: -(0.5 + 1.5 * za),
+         "near_0": lambda: -(200.0 + 100.0 * za),
+         "edges": lambda: torch.tensor(
+             (-1.0, -690.7755, -1e30, -1.0), device="cuda")[
+             torch.arange(n, device="cuda") % 4].expand(di, n).contiguous(),
+         }.get(decays, lambda: -torch.ones((di, n), device="cuda"))()
     bb, c = (torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
     h0 = (0.2 * torch.randn((b, di, n), generator=gen, device="cuda")
@@ -956,40 +1003,71 @@ def _double(*xs):
     return [None if x is None else x.double() for x in xs]
 
 
+def _wkv_routes() -> dict:
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    return {wk.CHUNKED: wk.chunked_launches,
+            wk.PER_TOKEN: wk.per_token_launches}
+
+
+def _wkv_on_its_route(r, k, v, w, u, s0):
+    """One launch of wkv6_4d, checked to have gone through the kernel that
+    its S routes it to and no other."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    which = wk.route(r.shape[1])
+    before = _wkv_routes()
+    out = wk.wkv6_4d(r, k, v, w, u, s0)
+    after = _wkv_routes()
+    check(after[which] == before[which] + 1
+          and sum(after.values()) == sum(before.values()) + 1,
+          f"rwkv6_scan at S {r.shape[1]} did not take its route {which}: "
+          f"{before} -> {after}")
+    return which, out
+
+
 def scan_parity() -> dict:
     """Each scan against its plain version evaluated in float64 on the
-    same inputs: the shapes of tests/test_kernels.py with and without a
-    carried state, ragged S (1,000) and S = 1, and the serve shapes;
-    rwkv6_scan also at full-width decays and decays near 1 and near 0.
-    Tolerances of tests/test_kernels.py (5e-4, 5e-5); a bf16 y is held to
-    one bf16 rounding of the exact y.  Near-1 decays sum ~1,000
-    undecayed outer products into outputs of magnitude ~1,000, and
-    float32 rounding of such sums reaches ~1e-3 whatever their order
-    (the plain version's own float32 result, printed beside the kernel's,
-    is as far from the exact one): that case is held to 5e-4 of its
-    largest |value|."""
+    same inputs.  rwkv6_scan through both routes, each checked by its
+    route counter: the per-token route at S = 1 and 15, the chunked one
+    at the shapes of tests/test_kernels.py, a ragged S of 1,000 and the
+    serve shape; decays at full width, near 1, near 0 and at the edges
+    (0, 1e-30, 1 - 1e-7, 1), carried and not (the serve shape at full
+    width and at the edges).  mamba_scan at the shapes of
+    tests/test_kernels.py, S = 1, ragged S, Di off the block grid, N < 16
+    (both off the 16-byte grid, which the kernel stages by plain loads),
+    its decay regimes and the serve shape in bf16 and f32.  Tolerances of
+    tests/test_kernels.py (5e-4, 5e-5); a bf16 y is held to one bf16
+    rounding of the exact y; at a large dt both add what float32 can give
+    (``_large_dt_witness``).  Near-1 decays sum ~1,000 undecayed outer
+    products into outputs of magnitude ~1,000, and float32 rounding of
+    such sums reaches ~1e-3 whatever their order (the plain version's own
+    float32 result, printed beside the kernel's, is as far from the exact
+    one): that case is held to 5e-4 of its largest |value|."""
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.mamba_scan import ref as mref
     from repro_torch.kernels.rwkv6_scan import ref as wref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
-    err = {"rwkv6_scan": 0.0, "mamba_scan": 0.0, "mamba_scan_bf16": 0.0}
+    err = {"rwkv6_scan": 0.0, "mamba_scan": 0.0, "mamba_scan_bf16": 0.0,
+           "mamba_scan_large_dt": 0.0, "mamba_scan_bf16_large_dt": 0.0}
     tol = SCAN_TOL["rwkv6_scan"]
     b, s, h, d = WKV_SHAPE
     wkv_cases = [((bb, ss, hh, dd), "sweep", carried)
                  for bb, ss, hh, dd in [(1, 64, 1, 16), (2, 128, 2, 32),
                                         (1, 256, 4, 64), (2, 96, 2, 32)]
                  for carried in (True, False)]
-    wkv_cases += [((2, 1000, h, d), "full_width", True),
-                  ((b, 1, h, d), "full_width", True),
-                  ((b, s, h, d), "full_width", False),
-                  ((b, s, h, d), "full_width", True),
-                  ((2, s, h, d), "near_1", True),
-                  ((2, s, h, d), "near_0", True)]
+    wkv_cases += [(shape, decays, carried)
+                  for shape in [(b, 1, h, d), (2, 15, h, d), (2, 1000, h, d)]
+                  for decays in DECAYS for carried in (True, False)]
+    wkv_cases += [((b, s, h, d), decays, carried)
+                  for decays in ("full_width", "edges")
+                  for carried in (False, True)]
+    wkv_cases += [((2, s, h, d), decays, True)
+                  for decays in ("near_1", "near_0")]
+    routes = {}
     for i, (shape, decays, carried) in enumerate(wkv_cases):
         r, k, v, w, u, s0 = _wkv_inputs(*shape, decays, 70 + i, carried)
         s_init = s0 if carried else torch.zeros(
             (shape[0], shape[2], shape[3], shape[3]), device="cuda")
-        y, sf = wk.wkv6_4d(r, k, v, w, u, s0)
+        which, (y, sf) = _wkv_on_its_route(r, k, v, w, u, s0)
+        routes[which] = routes.get(which, 0) + 1
         want_y, want_s = wref.wkv6(*_double(r, k, v, w, u, s_init))
         plain_y, _ = wref.wkv6(r, k, v, w, u, s_init)
         y, sf = y.double(), sf.double()
@@ -1002,49 +1080,115 @@ def scan_parity() -> dict:
               and torch.allclose(y, want_y, atol=atol, rtol=tol)
               and torch.allclose(sf, want_s, atol=atol, rtol=tol),
               f"rwkv6_scan differs from the plain version at {shape} "
-              f"{decays} carried={carried}: max |err| {e}")
+              f"{decays} carried={carried} ({which}): max |err| {e}")
         err["rwkv6_scan"] = max(err["rwkv6_scan"], e)
-        emit({"phase": "parity", "kernel": "rwkv6_scan", "case": list(shape),
-              "decays": decays, "w_min": float(w.min()), "carried": carried,
+        emit({"phase": "parity", "kernel": "rwkv6_scan", "route": which,
+              "case": list(shape), "decays": decays,
+              "w_min": float(w.min()), "carried": carried,
               "max_abs_err": e, "atol": atol, "rtol": tol,
               "plain_f32_max_abs_err": float(
                   (plain_y.double() - want_y).abs().max())})
+        del r, k, v, w, y, sf, want_y, want_s, plain_y
+    check(set(routes) == set(_wkv_routes()),
+          f"rwkv6_scan parity missed a route: {routes}")
+    err["rwkv6_scan_routes"] = routes
 
     tol = SCAN_TOL["mamba_scan"]
     b, s, di, n = SCAN_SHAPE
-    scan_cases = [((bb, ss, dd, nn), torch.float32, carried)
+    f32, bf16 = torch.float32, torch.bfloat16
+    scan_cases = [((bb, ss, dd, nn), f32, carried, "sweep")
                   for bb, ss, dd, nn in [(1, 64, 64, 8), (2, 128, 128, 16),
                                          (1, 96, 256, 16)]
                   for carried in (True, False)]
-    scan_cases += [((2, 1000, di, n), dt, True)
-                   for dt in (torch.float32, torch.bfloat16)]
-    scan_cases += [((b, 1, di, n), torch.bfloat16, True)]
-    scan_cases += [((b, s, di, n), dt, True)
-                   for dt in (torch.bfloat16, torch.float32)]
-    for i, (shape, dtype, carried) in enumerate(scan_cases):
-        u, dt, a, bb, c, h0 = _scan_inputs(*shape, dtype, 90 + i, carried)
+    scan_cases += [((2, 1000, di, n), dt, True, "sweep") for dt in (f32, bf16)]
+    scan_cases += [((b, 1, di, n), bf16, True, "sweep"),
+                   ((2, 65, 200, 5), bf16, True, "sweep"),
+                   ((1, 33, 300, 8), f32, False, "sweep"),
+                   ((2, 40, 1000, 16), bf16, True, "sweep")]
+    scan_cases += [((2, 200, di, n), bf16, carried, decays)
+                   for decays in DECAYS for carried in (True, False)]
+    scan_cases += [((b, s, di, n), dt, True, "sweep") for dt in (bf16, f32)]
+    scan_cases += [((2, 200, di, n), dt, carried, "large_dt")
+                   for dt in (f32, bf16) for carried in (True, False)]
+    for i, (shape, dtype, carried, decays) in enumerate(scan_cases):
+        u, dt, a, bb, c, h0 = _scan_inputs(*shape, dtype, 90 + i, carried,
+                                           decays)
+        h_init = h0 if carried else torch.zeros(
+            (shape[0], shape[2], shape[3]), device="cuda")
         y, hf = mk.selective_scan_3d(u, dt, a, bb, c, h0)
         check(y.dtype == dtype, f"mamba_scan: y in {y.dtype}, not {dtype}")
-        want_y, want_h = mref.selective_scan(*_double(u, dt, a, bb, c), _double(
-            h0 if carried else torch.zeros((shape[0], shape[2], shape[3]),
-                                           device="cuda"))[0])
+        exact_y, want_h = mref.selective_scan(*_double(u, dt, a, bb, c,
+                                                       h_init))
         torch.cuda.synchronize()
         # a bf16 y against the exact y rounded to bf16
-        want_y = want_y.to(dtype).double()
+        want_y = exact_y.to(dtype).double()
         y, hf = y.double(), hf.double()
         e = max(float((y - want_y).abs().max()),
                 float((hf - want_h).abs().max()))
-        rtol = tol if dtype == torch.float32 else 2 ** -7
-        check(torch.allclose(y, want_y, atol=tol, rtol=rtol)
-              and torch.allclose(hf, want_h, atol=tol, rtol=tol),
+        rtol = tol if dtype == f32 else 2 ** -7
+        row = {"phase": "parity", "kernel": "mamba_scan",
+               "case": list(shape), "dtype": str(dtype), "carried": carried,
+               "decays": decays, "max_abs_err": e, "tol": tol,
+               "y_rtol": rtol}
+        y_tol = tol + rtol * want_y.abs()
+        h_tol = tol + tol * want_h.abs()
+        if decays == "large_dt":
+            y_tol, h_tol, witness = _large_dt_witness(
+                (u, dt, a, bb, c, h_init), exact_y, want_h, y, want_y,
+                y_tol, h_tol, (1 + rtol) if dtype == bf16 else 1.0)
+            row.update(witness)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(hf).all())
+              and bool(((y - want_y).abs() <= y_tol).all())
+              and bool(((hf - want_h).abs() <= h_tol).all()),
               f"mamba_scan differs from the plain version at {shape} "
-              f"{dtype} carried={carried}: max |err| {e}")
-        key = "mamba_scan" if dtype == torch.float32 else "mamba_scan_bf16"
+              f"{dtype} carried={carried} {decays}: max |err| {e}")
+        # the large-dt cases, held to a wider bound, apart
+        key = ("mamba_scan" if dtype == f32 else "mamba_scan_bf16") + (
+            "_large_dt" if decays == "large_dt" else "")
         err[key] = max(err[key], e)
-        emit({"phase": "parity", "kernel": "mamba_scan", "case": list(shape),
-              "dtype": str(dtype), "carried": carried, "max_abs_err": e,
-              "tol": tol, "y_rtol": rtol})
+        emit(row)
+        del u, dt, bb, c, y, hf, want_y, want_h, exact_y
     return err
+
+
+def _large_dt_witness(x, exact_y, exact_h, y, want_y, y_tol, h_tol,
+                      widen: float):
+    """At a large dt, y is a float32 sum of terms up to ~10^4 times its
+    size, and no float32 evaluation meets 5e-5 everywhere.  The kernel
+    and the plain float32 scans (exp, and exp2 as the kernel takes it)
+    are each held to the tolerance plus ``ref.float32_error_bound`` (for
+    a bf16 y, widened by one bf16 rounding of it).  The witness: how many
+    outputs of each leave the plain tolerance, each one's largest error
+    where the kernel's does, and each one's largest error over the bound
+    (the kernel's in float32 only: a bf16 y's rounding is not in the
+    bound).  Returns the widened tolerances of y and h and the witness."""
+    from repro_torch.kernels.mamba_scan import ref as mref
+    bound_y, bound_h = mref.float32_error_bound(*x)
+    outside = (y - want_y).abs() > y_tol
+    witness = {"kernel_y_outside_plain_tol": int(outside.sum())}
+    if widen == 1.0:
+        witness["kernel_err_over_bound"] = float(
+            ((y - exact_y).abs() / bound_y).nan_to_num(nan=0.0).max())
+    tol = SCAN_TOL["mamba_scan"]
+    for name, scan in (("plain_f32", mref.selective_scan),
+                       ("plain_f32_exp2", mref.selective_scan_exp2)):
+        py, ph = (v.double() for v in scan(*x))
+        ey = (py - exact_y).abs()
+        plain_tol = tol + tol * exact_y.abs()
+        check(bool((ey <= plain_tol + bound_y).all())
+              and bool(((ph - exact_h).abs() <= h_tol + bound_h).all()),
+              f"{name} leaves the float32 bound at a large dt")
+        witness[f"{name}_max_abs_err"] = float(ey.max())
+        witness[f"{name}_err_over_bound"] = float(
+            (ey / bound_y).nan_to_num(nan=0.0).max())
+        witness[f"{name}_y_outside_plain_tol"] = int((ey > plain_tol).sum())
+        if outside.any():
+            witness[f"{name}_err_where_kernel_outside"] = float(
+                ey[outside].max())
+    if outside.any():
+        witness["kernel_err_where_outside"] = float(
+            (y - want_y).abs()[outside].max())
+    return y_tol + widen * bound_y, h_tol + bound_h, witness
 
 
 # -- 7. serving Qwen2-1.5B at full width --------------------------------------------
@@ -1332,7 +1476,12 @@ def _model_counts() -> dict:
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
     return {"flash_attention": fk.launches,
             "flash_attention_tensor_core": fk.tensor_core_launches,
-            "rwkv6_scan": wk.launches, "mamba_scan": mk.launches}
+            "rwkv6_scan": wk.launches,
+            "rwkv6_scan_chunked": wk.chunked_launches,
+            "rwkv6_scan_per_token": wk.per_token_launches,
+            "mamba_scan": mk.launches,
+            "mamba_scan_prefill": mk.prefill_launches,
+            "mamba_scan_decode": mk.decode_launches}
 
 
 def family_serve_phase(arch: str, ragged: bool, must_launch,
@@ -1344,9 +1493,9 @@ def family_serve_phase(arch: str, ragged: bool, must_launch,
     the kernels against the plain path's prefill (the plain scans and
     attention) and the last decode step against a full forward through
     the plain path (whose attention is the one decode runs), each within
-    5e-2 of the largest logit, every logit finite, and each kernel of
-    ``must_launch`` launched on this path; returns the path's launch
-    counts."""
+    5e-2 of the largest logit, every logit finite, and each count of
+    ``must_launch`` (a kernel, or a kernel's route) above 0 on this path;
+    returns the path's launch counts and each wave's prefill seconds."""
     from repro_torch.models import registry
     from repro_torch.serve.engine import (Request, Scheduler, ServeConfig,
                                           ServeSession)
@@ -1416,7 +1565,8 @@ def family_serve_phase(arch: str, ragged: bool, must_launch,
     check(all(c.tokens.shape == (FAMILY_SERVE["max_new_tokens"],)
               for c in done), "completions: wrong token counts")
     emit({"phase": "serve", "model": cfg.name, "checks": "passed"})
-    return launches
+    return {**launches,
+            "prefill_s": {k: v["prefill_s"] for k, v in stats.items()}}
 
 
 # -- 8. the bdml island over the ICU feed -------------------------------------------
@@ -1715,12 +1865,10 @@ def _sm90_machine_code() -> dict:
     """The tensor-core kernel's ptxas report (registers, spills) and how
     many wgmma (HGMMA) and TMA load (UTMALDG) instructions
     ``cuobjdump -sass`` finds in its built library."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _sass
     from repro_torch.kernels.flash_attention import flash_attention as fk
-    path = _build.library_path("flash_attention_sm90", fk.SM90_SOURCES)
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = _sass.disassemble(str(_build.library_path(
+        "flash_attention_sm90", fk.SM90_SOURCES)))
     ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get(
         "flash_attention_sm90", "").splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1811,6 +1959,49 @@ def _f32_bound(nbytes: int, ops: int) -> dict:
             "bytes": nbytes, "operations": ops}
 
 
+def _kernel_name(mangled: str) -> str:
+    """A scan kernel's mangled name as kernel<template argument>."""
+    m = re.search(r"(?<=\d)((?:wkv6|scan)\w*?_kernel)I"
+                  r"(Li(\d+)E|f|13__nv_bfloat16)", mangled)
+    if not m:
+        return mangled
+    arg = m.group(3) or ("float" if m.group(2) == "f" else "bfloat16")
+    return f"{m.group(1)}<{arg}>"
+
+
+def _ptxas(library: str) -> dict:
+    """ptxas's registers and spills for each kernel of a library built in
+    this run."""
+    from repro_torch.kernels import _build
+    out, name = {}, None
+    for ln in _build.BUILD_LOGS.get(library, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def _sass(library: str, sources) -> list:
+    """repro_torch.kernels._sass's reading of a library built in this
+    run: each kernel's instruction count, its hot loop's opcodes and
+    instructions per MUFU.EX2."""
+    from repro_torch.kernels import _build, _sass
+    sass = _sass.disassemble(str(_build.library_path(library, sources)))
+    return [{"kernel": _kernel_name(row["kernel"]),
+             "instructions": row["instructions"], "hot_loop": row["hot_loop"]}
+            for row in _sass.analyse(sass)]
+
+
+def _clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi gives it."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(mhz.splitlines()[0]) * 1e6
+
+
 def _scan_times(kernel, plain, sets, nbytes: int, ops: int) -> dict:
     return {"ms": _graph_ms([lambda x=x: kernel(*x) for x in sets]),
             "plain_ms": _graph_ms([lambda x=x: plain(*x) for x in sets],
@@ -1818,24 +2009,57 @@ def _scan_times(kernel, plain, sets, nbytes: int, ops: int) -> dict:
             **_f32_bound(nbytes, ops)}
 
 
-def scan_kernel_rows(launches: dict, err: dict) -> list:
+def _decode_times(kernel, sets, nbytes: int) -> dict:
+    """One S = 1 step's time over input sets that together exceed the 50
+    MB L2 (as the states of a model's layers do), beside the time the
+    state's bytes alone take."""
+    return {"ms": _graph_ms([lambda x=x: kernel(*x) for x in sets]),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def scan_kernel_rows(launches: dict, err: dict, prefill_s: dict) -> list:
     """rwkv6_scan at RWKV6-7B's wave (8, 1,024, 64 heads of 64, float32,
-    full-width decays) and mamba_scan at Jamba's (8, 1,024, 8,192, N 16,
-    bf16 as the model feeds it; f32 beside it), each over two input sets
-    that rotate past the 50 MB L2, against its plain version.  No one
-    PyTorch call computes either recurrence."""
+    full-width decays; the chunked route) and mamba_scan at Jamba's (8,
+    1,024, 8,192, N 16, bf16 as the model feeds it; f32 beside it), each
+    over two input sets that rotate past the 50 MB L2, against its plain
+    version; and each at a decode step, S = 1 (rwkv6_scan's per-token
+    route), over eight sets.  No one PyTorch call computes either
+    recurrence.  Beside each: its launches on the serve paths by route
+    (prefill or decode), the model's prefill seconds, ptxas's registers
+    and spills, its SASS (repro_torch.kernels._sass), and for mamba_scan
+    the floor its exps set on the SFUs."""
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.mamba_scan import ref as mref
     from repro_torch.kernels.rwkv6_scan import ref as wref
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
     b, s, h, d = WKV_SHAPE
+    check(wk.route(s) == wk.CHUNKED and wk.route(1) == wk.PER_TOKEN,
+          "rwkv6_scan's routes at the serve shapes")
     sets = [_wkv_inputs(b, s, h, d, "full_width", 110 + i) for i in range(2)]
-    # read r, k, v, w, u and S_0 once, write y and S; per state element
-    # and token: k v, u (k v) + S, r (...) summed, w S + k v: 7 operations
-    wkv = _scan_times(wk.wkv6_4d, wref.wkv6, sets,
-                      4 * (5 * b * s * h * d + h * d + 2 * b * h * d * d),
-                      7 * b * s * h * d * d)
+    chunks = b * h * -(-s // wk.CHUNK)
+    c = wk.CHUNK
+    # the chunked form's products in 3xTF32 (three TF32 products each):
+    # y's inter-chunk term and the state update (2 c d^2 each), P V
+    # (2 c^2 d) and P's three tensor-core levels (2 c 8 d each); on the
+    # CUDA cores the factors (~10 an element) and P's 24 other entries
+    tc_ops = 3 * chunks * (4 * c * d * d + 2 * c * c * d + 3 * 2 * c * 8 * d)
+    cc_ops = chunks * (10 * c * d + 24 * 2 * d)
+    nbytes = 4 * (5 * b * s * h * d + h * d + 2 * b * h * d * d)
+    wkv = _scan_times(wk.wkv6_4d, wref.wkv6, sets, nbytes, tc_ops + cc_ops)
+    ops_ms = (tc_ops / TF32_OPS_PER_S + cc_ops / F32_OPS_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    wkv.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               operations_tensor_core_tf32=tc_ops,
+               operations_cuda_core=cc_ops)
     del sets
+    dec = [_wkv_inputs(b, 1, h, d, "full_width", 130 + i) for i in range(8)]
+    wkv_decode = _decode_times(wk.wkv6_4d, dec, 4 * (
+        5 * b * h * d + h * d + 2 * b * h * d * d))
+    wkv_decode["shape"] = [b, 1, h, d]
+    del dec
+
     b, s, di, n = SCAN_SHAPE
     scan = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1849,6 +2073,16 @@ def scan_kernel_rows(launches: dict, err: dict) -> list:
             esize * (3 * b * s * di + 2 * b * s * n) + 4 * di * n
             + 8 * b * di * n, b * s * di * (7 * n + 1))
         del sets
+    dec = [_scan_inputs(b, 1, di, n, torch.bfloat16, 140 + i)
+           for i in range(8)]
+    scan_decode = _decode_times(mk.selective_scan_3d, dec, 2 * (
+        3 * b * di + 2 * b * n) + 4 * di * n + 8 * b * di * n)
+    scan_decode["shape"] = [b, 1, di, n]
+    del dec
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _clock_hz()
+    exp_floor_ms = b * s * di * n / (SFU_EX2_PER_CLOCK * sms * clock) * 1e3
+
     common = {"route": "cuda", "library_ms": None,
               "library": "none (no one call)"}
     return [
@@ -1856,14 +2090,39 @@ def scan_kernel_rows(launches: dict, err: dict) -> list:
          "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
          "replaces": f"{WKV_REPLACES}:33",
          "launches": launches["rwkv6_scan"], "max_abs_err": err["rwkv6_scan"],
-         **common, **wkv, "shape": list(WKV_SHAPE), "dtype": "float32"},
+         **common, **wkv,
+         "shape": list(WKV_SHAPE), "dtype": "float32",
+         "kernel_route": wk.CHUNKED,
+         "launches_by_route": {
+             wk.CHUNKED: launches["rwkv6_scan_chunked"],
+             wk.PER_TOKEN: launches["rwkv6_scan_per_token"]},
+         "parity_cases_by_route": err["rwkv6_scan_routes"],
+         "decode": {**wkv_decode, "kernel_route": wk.PER_TOKEN},
+         "rwkv6_7b_prefill_s": prefill_s["rwkv6-7b"],
+         "ptxas": _ptxas("rwkv6_scan"),
+         "sass": _sass("rwkv6_scan", wk.SOURCES)},
         {"name": "mamba_scan",
          "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
          "replaces": f"{SCAN_REPLACES}:31",
          "launches": launches["mamba_scan"], "max_abs_err": err["mamba_scan"],
-         **common, **scan[torch.bfloat16], "shape": list(SCAN_SHAPE),
+         **common, **scan[torch.bfloat16],
+         "shape": list(SCAN_SHAPE),
          "dtype": "bfloat16", "max_abs_err_bf16": err["mamba_scan_bf16"],
-         "f32": scan[torch.float32]}]
+         "max_abs_err_large_dt": {
+             "f32": err["mamba_scan_large_dt"],
+             "bf16": err["mamba_scan_bf16_large_dt"]},
+         "f32": scan[torch.float32],
+         "exp_floor_ms": exp_floor_ms,
+         "exp_floor": f"{b * s * di * n} MUFU.EX2 at "
+                      f"{SFU_EX2_PER_CLOCK} a clock on {sms} SMs at "
+                      f"{clock / 1e9:.3f} GHz",
+         "launches_by_route": {
+             "prefill": launches["mamba_scan_prefill"],
+             "decode": launches["mamba_scan_decode"]},
+         "decode": scan_decode,
+         "jamba_prefill_s": prefill_s["jamba-v0.1-52b"],
+         "ptxas": _ptxas("mamba_scan"),
+         "sass": _sass("mamba_scan", mk.SOURCES)}]
 
 
 def main() -> int:
@@ -1930,9 +2189,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # each family phase resets the model kernels' counts before its serve
     # path and reads them after it
-    rwkv = family_serve_phase("rwkv6-7b", True, ("rwkv6_scan",))
+    rwkv = family_serve_phase("rwkv6-7b", True,
+                              ("rwkv6_scan", "rwkv6_scan_chunked",
+                               "rwkv6_scan_per_token"))
     jamba = family_serve_phase("jamba-v0.1-52b", False,
-                               ("mamba_scan", "flash_attention"),
+                               ("mamba_scan", "mamba_scan_prefill",
+                                "mamba_scan_decode", "flash_attention"),
                                num_layers=JAMBA_LAYERS)
     torch.cuda.empty_cache()
     ml_phase()
@@ -1945,8 +2207,11 @@ def main() -> int:
     rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],
                                     "serve_jamba": jamba["flash_attention"]}
     rows[-1]["qwen2_prefill_s"] = serve["prefill_s"]
-    rows += scan_kernel_rows({"rwkv6_scan": rwkv["rwkv6_scan"],
-                              "mamba_scan": jamba["mamba_scan"]}, scan_err)
+    rows += scan_kernel_rows(
+        {**{k: v for k, v in rwkv.items() if k.startswith("rwkv6_scan")},
+         **{k: v for k, v in jamba.items() if k.startswith("mamba_scan")}},
+        scan_err, {"rwkv6-7b": rwkv["prefill_s"],
+                   "jamba-v0.1-52b": jamba["prefill_s"]})
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

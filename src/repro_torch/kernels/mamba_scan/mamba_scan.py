@@ -6,7 +6,8 @@ The wrapper takes CUDA tensors only and raises on anything else; the CPU
 path is ``ref.py``, chosen by ``ops.py`` from the tensor's device.  It
 allocates the outputs, launches on PyTorch's current stream without
 synchronising, raises if the launch reports an error, and adds one to
-its launch count.
+its launch count and to that of its kind: a sequence (S > 1, a prefill)
+or one token (S = 1, a decode step).
 """
 from __future__ import annotations
 
@@ -24,15 +25,18 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 16                          # N: the kernel's register arrays
 MAX_BATCH = 65535                       # grid y
 
-# launches in this process (chip_smoke.py zeroes and reads it around the
-# main path)
+# launches in this process, in all and by S (chip_smoke.py zeroes and
+# reads them around the main path)
 launches = 0
+prefill_launches = 0                    # S > 1
+decode_launches = 0                     # S = 1
 _COUNT_LOCK = threading.Lock()
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
-    lib = _build.load_library("mamba_scan", SOURCES)
+def load(name: str = "mamba_scan", sources=SOURCES) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library (or, given
+    another name and sources, a variant of it: scan_variants.py)."""
+    lib = _build.load_library(name, sources)
     if not hasattr(lib, "_repro_typed"):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_selective_scan.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
@@ -44,9 +48,9 @@ def load() -> ctypes.CDLL:
 
 
 def reset_launch_count() -> None:
-    global launches
+    global launches, prefill_launches, decode_launches
     with _COUNT_LOCK:
-        launches = 0
+        launches = prefill_launches = decode_launches = 0
 
 
 def _check(u, dt, a, b, c, h0) -> None:
@@ -83,7 +87,7 @@ def selective_scan_3d(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """u,dt: (B,S,Di), b,c: (B,S,N), one dtype, on the card; a: (Di,N)
     f32; optional h0 (B,Di,N) f32, zero if None -> (y (B,S,Di) in u's
     dtype, final h (B,Di,N) f32)."""
-    global launches
+    global launches, prefill_launches, decode_launches
     _check(u, dt, a, b, c, h0)
     bsz, s, di = u.shape
     n = a.shape[1]
@@ -102,4 +106,8 @@ def selective_scan_3d(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                            f"{lib.repro_cuda_error_string(err).decode()}")
     with _COUNT_LOCK:
         launches += 1
+        if s > 1:
+            prefill_launches += 1
+        else:
+            decode_launches += 1
     return y, h_out

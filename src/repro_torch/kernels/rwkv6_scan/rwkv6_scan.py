@@ -1,12 +1,19 @@
-"""Binding of the hand-written CUDA WKV6 kernel (``csrc/rwkv6_scan.cu``),
-which replaces the Pallas TPU kernel of
-``repro.kernels.rwkv6_scan.rwkv6_scan`` (``_wkv_kernel``).
+"""Binding of the hand-written CUDA WKV6 kernels (``csrc/rwkv6_scan.cu``),
+which replace the Pallas TPU kernel of
+``repro.kernels.rwkv6_scan.rwkv6_scan`` (``_wkv_kernel``), in two routes:
 
-The wrapper takes CUDA tensors only and raises on anything else; the CPU
-path is ``ref.py``, chosen by ``ops.py`` from the tensor's device.  It
-allocates the outputs, launches on PyTorch's current stream without
-synchronising, raises if the launch reports an error, and adds one to
-its launch count.
+- ``CHUNKED`` (S >= 16, every prefill): the stable chunked form, its
+  products on the tensor cores in 3xTF32 (``ref.wkv6_chunked`` is its
+  plain version);
+- ``PER_TOKEN`` (S < 16, every S = 1 decode step): the recurrence token
+  by token on the CUDA cores.
+
+``route`` picks one from S alone, before any launch.  The wrapper takes
+CUDA tensors only and raises on anything else; the CPU path is
+``ref.py``, chosen by ``ops.py`` from the tensor's device.  It allocates
+the outputs, launches on PyTorch's current stream without synchronising,
+raises if the launch reports an error, and adds one to its launch count
+and to its route's.
 """
 from __future__ import annotations
 
@@ -20,20 +27,31 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu",)
-HEAD_DIMS = (16, 32, 64)                # the kernel's template instances
+HEAD_DIMS = (16, 32, 64)                # the kernels' template instances
+CHUNK = 16                              # tokens of the chunked route's chunk
+CHUNKED, PER_TOKEN = "chunked", "per_token"
 
-# launches in this process (chip_smoke.py zeroes and reads it around the
-# main path)
+# launches in this process, in all and by route (chip_smoke.py zeroes and
+# reads them around the main path)
 launches = 0
+chunked_launches = 0
+per_token_launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
-    lib = _build.load_library("rwkv6_scan", SOURCES)
+def route(seq_len: int) -> str:
+    """The kernel that takes a sequence of ``seq_len`` tokens: ``CHUNKED``
+    from one whole chunk (16 tokens) up, else ``PER_TOKEN``."""
+    return CHUNKED if seq_len >= CHUNK else PER_TOKEN
+
+
+def load(name: str = "rwkv6_scan", sources=SOURCES) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library (or, given
+    another name and sources, a variant of it: scan_variants.py)."""
+    lib = _build.load_library(name, sources)
     if not hasattr(lib, "_repro_typed"):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.repro_wkv6.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -42,9 +60,9 @@ def load() -> ctypes.CDLL:
 
 
 def reset_launch_count() -> None:
-    global launches
+    global launches, chunked_launches, per_token_launches
     with _COUNT_LOCK:
-        launches = 0
+        launches = chunked_launches = per_token_launches = 0
 
 
 def _check(r, k, v, w, u, state) -> None:
@@ -64,6 +82,9 @@ def _check(r, k, v, w, u, state) -> None:
             raise ValueError(f"{name} must be a contiguous {shape} tensor "
                              f"(r is (B, S, H, D)), got shape "
                              f"{tuple(x.shape)}, strides {x.stride()}")
+        # the chunked route copies r, k, v and w in 16-byte pieces
+        if name in ("r", "k", "v", "w") and x.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
     if r.numel() == 0:
         raise ValueError(f"r must hold at least one token, got shape "
                          f"{tuple(r.shape)}")
@@ -78,10 +99,12 @@ def wkv6_4d(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             state: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r,k,v,w: (B,S,H,D) float32 on the card; u: (H,D); optional initial
-    state (B,H,D,D), zero if None -> (y (B,S,H,D), final state)."""
-    global launches
+    state (B,H,D,D), zero if None -> (y (B,S,H,D), final state), through
+    the route that ``route(S)`` names."""
+    global launches, chunked_launches, per_token_launches
     _check(r, k, v, w, u, state)
     b, s, h, d = r.shape
+    which = route(s)
     lib = load()
     y = torch.empty_like(r)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -90,10 +113,15 @@ def wkv6_4d(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
             y.data_ptr(), s_out.data_ptr(), b, s, h, d,
+            int(which == CHUNKED),
             torch.cuda.current_stream(r.device).cuda_stream)
     if err:
-        raise RuntimeError(f"rwkv6_scan launch failed: "
+        raise RuntimeError(f"rwkv6_scan ({which}) launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()}")
     with _COUNT_LOCK:
         launches += 1
+        if which == CHUNKED:
+            chunked_launches += 1
+        else:
+            per_token_launches += 1
     return y, s_out

@@ -314,17 +314,38 @@ def _wkv(card, b, s, h, d, seed, decays="sweep", carried=True):
             for x in (r, k, v, w, u, s0)]
 
 
+def _wkv_routes():
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    return {wk.CHUNKED: wk.chunked_launches,
+            wk.PER_TOKEN: wk.per_token_launches}
+
+
+def _wkv_on_its_route(r, k, v, w, u, s0):
+    """One launch of wkv6_4d, checked to have gone through the kernel that
+    its S routes it to and no other."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    which = wk.route(r.shape[1])
+    before = _wkv_routes()
+    out = wk.wkv6_4d(r, k, v, w, u, s0)
+    after = _wkv_routes()
+    assert after[which] == before[which] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
 @pytest.mark.parametrize("decays", ["sweep", "full_width", "edges"])
 @pytest.mark.parametrize("b,s,h,d,carried", [
     (1, 64, 1, 16, True), (2, 128, 2, 32, True), (1, 256, 4, 64, True),
     (2, 96, 2, 32, True), (2, 96, 2, 32, False), (3, 1, 5, 64, True),
-    (1, 1000, 3, 64, False), (2, 33, 64, 64, True)])
+    (1, 1000, 3, 64, False), (2, 33, 64, 64, True), (2, 15, 3, 32, True),
+    (2, 15, 3, 64, False), (1, 16, 2, 64, True), (1, 17, 2, 16, False)])
 def test_wkv6_matches_plain_version_on_card(card, b, s, h, d, carried,
                                            decays):
+    """Each case through the route its S picks (per-token below 16
+    tokens, chunked from 16), checked by the route counters."""
     from repro_torch.kernels.rwkv6_scan import ref as wref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
     r, k, v, w, u, s0 = _wkv(card, b, s, h, d, b * s + d, decays, carried)
-    y, sf = wk.wkv6_4d(r, k, v, w, u, s0)
+    y, sf = _wkv_on_its_route(r, k, v, w, u, s0)
     want_y, want_s = wref.wkv6(r, k, v, w, u, s0 if carried else
                                torch.zeros((b, h, d, d), device=card))
     assert torch.isfinite(y).all() and torch.isfinite(sf).all()
@@ -363,9 +384,13 @@ def assert_scan_close(y, h, want_y, want_h, dtype):
 @pytest.mark.parametrize("b,s,di,n,carried", [
     (1, 64, 64, 8, True), (2, 128, 128, 16, True), (1, 96, 256, 16, True),
     (1, 96, 256, 16, False), (2, 1, 200, 16, True), (1, 1000, 300, 4, True),
-    (3, 65, 8192, 16, True)])
+    (3, 65, 8192, 16, True), (2, 40, 1000, 16, True), (2, 33, 300, 8, True),
+    (1, 17, 129, 5, False), (2, 16, 8192, 12, True), (2, 1, 8200, 16, False)])
 def test_selective_scan_matches_plain_version_on_card(card, b, s, di, n,
                                                      carried, dtype):
+    """Shapes on and off the kernel's grid: Di off its 128-channel blocks
+    and N < 16, rows on the 16-byte grid (staged by cp.async) and off it
+    (staged by plain loads), S = 1 and ragged S."""
     from repro_torch.kernels.mamba_scan import mamba_scan as mk
     from repro_torch.kernels.mamba_scan import ref as mref
     u, dt, a, bb, c, h0 = _scan(card, b, s, di, n, dtype, s + di, carried)
@@ -421,3 +446,81 @@ def test_scan_ops_route_cuda_tensors_to_the_kernels(card):
     wk.reset_launch_count()
     mk.reset_launch_count()
     assert (wk.launches, mk.launches) == (0, 0)
+    assert _wkv_routes() == {wk.CHUNKED: 0, wk.PER_TOKEN: 0}
+    assert (mk.prefill_launches, mk.decode_launches) == (0, 0)
+
+
+@pytest.mark.parametrize("s,which", [(1, "per_token"), (15, "per_token"),
+                                     (16, "chunked"), (1000, "chunked")])
+def test_wkv6_routes_by_sequence_length(card, s, which):
+    """S alone picks the kernel, whatever the head dim or state."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    assert wk.route(s) == which
+    for d, carried in ((64, True), (16, False)):
+        before = _wkv_routes()
+        wk.wkv6_4d(*_wkv(card, 2, s, 3, d, s + d, "sweep", carried))
+        after = _wkv_routes()
+        assert after[which] == before[which] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+
+
+def test_mamba_scan_counts_prefill_and_decode(card):
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    before = (mk.prefill_launches, mk.decode_launches)
+    mk.selective_scan_3d(*_scan(card, 2, 1, 256, 16, torch.bfloat16, 1))
+    mk.selective_scan_3d(*_scan(card, 2, 7, 256, 16, torch.bfloat16, 2))
+    assert (mk.prefill_launches, mk.decode_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+
+
+def _scan_cases(card):
+    """(kernel, inputs, check against the plain version) for each route
+    at moderate shapes."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ref as mref
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+
+    def wkv_check(x, out):
+        want = wref.wkv6(*x)
+        for got, w in zip(out, want):
+            torch.testing.assert_close(got, w, atol=WKV_TOL, rtol=WKV_TOL)
+
+    def scan_check(x, out):
+        assert_scan_close(*out, *mref.selective_scan(*x), x[0].dtype)
+
+    cases = [(wk.wkv6_4d, _wkv(card, 2, s, 8, 64, s, "full_width"),
+              wkv_check) for s in (1000, 1)]
+    cases += [(mk.selective_scan_3d, _scan(card, 2, s, 8192, 16, dtype, s),
+               scan_check)
+              for s, dtype in ((300, torch.bfloat16), (1, torch.bfloat16),
+                               (100, torch.float32))]
+    return cases
+
+
+def test_scans_launch_under_graph_capture(card):
+    """Both scans, through each route, build nothing and allocate nothing
+    but their outputs in a launch: a CUDA graph captures them and replays
+    them on new inputs copied into the captured ones."""
+    for kernel, x, check in _scan_cases(card):
+        kernel(*x)                                   # warm: build, attrs
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kernel(*x)
+        for scale in (0.5, 2.0):
+            for t in (x[0], x[-1]):
+                t.mul_(scale)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(x, out)
+
+
+def test_scans_are_bitwise_repeatable(card):
+    """No atomics and a fixed order of every sum: two launches on the same
+    inputs give the same bits."""
+    for kernel, x, _ in _scan_cases(card):
+        first = kernel(*x)
+        again = kernel(*x)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])

@@ -103,11 +103,13 @@ def test_wkv6_zero_state_matches_the_reference_oracle(s):
 
 
 def test_wkv6_at_full_width_decays_splits_from_the_chunked_kernel():
-    """At RWKV6-7B's decays the reference's chunked kernel divides k by
-    decay products that underflow float32 and returns non-finite values;
-    its oracle and the port's recurrence stay finite and agree.  The
-    port's kernel computes the recurrence's function, not the chunked
-    form's (ROADMAP.md §3)."""
+    """At RWKV6-7B's decays the reference's chunked kernel (the TPU's
+    form) divides k by decay products that underflow float32 and returns
+    non-finite values; its oracle and the port's recurrence stay finite
+    and agree.  The port's chunked route runs another chunked form, whose
+    every decay factor is a running product in [0, 1] and which stays
+    finite there (``test_wkv6_chunked_form_matches_the_recurrence``); the
+    TPU's form is the one that fails (ROADMAP.md §3)."""
     r, k, v, w, u, s0 = _wkv_inputs(1, 64, 2, 64, seed=0,
                                     decays="full_width")
     cum = np.log(w).sum(axis=1)                  # (B, H, D) over the chunk
@@ -131,6 +133,87 @@ def test_wkv6_decays_at_the_edges():
     y, sf = wref.wkv6(*_t(r, k, v, w, u, s0))
     _close(want_y, y, WKV_TOL)
     _close(want_s, sf, WKV_TOL)
+
+
+def _edge_inputs(s, seed):
+    """One head of 64 with decays drawn from 0, 1e-30, 1 - 1e-7 and 1."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, s, 1, 64, seed)
+    rng = np.random.default_rng(seed + 1)
+    w = rng.choice(np.array([0.0, 1e-30, 1.0 - 1e-7, 1.0], np.float32),
+                   w.shape)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("s", [1, 15, 33, 1000])
+@pytest.mark.parametrize("carried", [True, False], ids=["carried", "zero"])
+@pytest.mark.parametrize("decays", ["sweep", "full_width", "near_1",
+                                    "edges"])
+def test_wkv6_chunked_form_matches_the_recurrence(decays, carried, s,
+                                                  chunk):
+    """``ref.wkv6_chunked``, the chunked CUDA route's stable form with its
+    3xTF32 products emulated (chunk 16 as the kernel runs it; 64 with
+    sub-chunks of 16), at one head of 64, against the port's recurrence
+    evaluated in float64 and against the reference's oracle (float32), on
+    the same numpy inputs, finite throughout.  5e-4 as
+    ``tests/test_kernels.py``; decays near 1 sum ~S undecayed outer
+    products into outputs of magnitude ~S, where float32 rounding reaches
+    ~1e-3 whatever the order (the oracle's own float32 result is as far
+    from the exact one), so that case is held to 5e-4 of its largest
+    |value|, as ``chip_smoke.py`` holds the kernel."""
+    if decays == "edges":
+        x = _edge_inputs(s, seed=s + chunk)
+    else:
+        x = _wkv_inputs(1, s, 1, 64, seed=s + chunk, decays={
+            "sweep": (0.85, 0.999), "full_width": "full_width",
+            "near_1": (1.0 - 1e-4, 1.0)}[decays])
+    r, k, v, w, u, s0 = x
+    if not carried:
+        s0 = np.zeros_like(s0)
+    y, sf = wref.wkv6_chunked(*_t(r, k, v, w, u, s0), chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    exact_y, exact_s = wref.wkv6(*(t.double() for t in _t(r, k, v, w, u,
+                                                          s0)))
+    oracle_y, oracle_s = jwref.wkv6(*_j(r, k, v, w, u, s0))
+    for want_y, want_s in ((exact_y.numpy(), exact_s.numpy()),
+                           (np.asarray(oracle_y), np.asarray(oracle_s))):
+        atol = WKV_TOL * (float(np.abs(want_y).max())
+                          if decays == "near_1" else 1.0)
+        np.testing.assert_allclose(y.numpy(), want_y, atol=atol,
+                                   rtol=WKV_TOL)
+        np.testing.assert_allclose(sf.numpy(), want_s, atol=atol,
+                                   rtol=WKV_TOL)
+
+
+def test_wkv6_chunked_form_takes_whole_sub_chunks():
+    x = _t(*_wkv_inputs(1, 8, 1, 16, seed=0))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wref.wkv6_chunked(*x, chunk=24)
+
+
+@pytest.mark.parametrize("s,which", [(1, "per_token"), (15, "per_token"),
+                                     (16, "chunked"), (17, "chunked"),
+                                     (1024, "chunked")])
+def test_wkv6_route_follows_sequence_length(s, which):
+    """S alone picks the CUDA kernel: the per-token route below one whole
+    chunk of 16 tokens (every decode step), the chunked one from there."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    assert wk.route(s) == which
+    assert {wk.CHUNKED, wk.PER_TOKEN} == {"chunked", "per_token"}
+
+
+def test_cpu_tensors_launch_no_scan_kernel():
+    """On the CPU the entry points take the plain versions: no launch
+    count, no route count moves."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    counts = lambda: (wk.launches, wk.chunked_launches,  # noqa: E731
+                      wk.per_token_launches, mk.launches,
+                      mk.prefill_launches, mk.decode_launches)
+    before = counts()
+    wops.wkv6(*_t(*_wkv_inputs(1, 20, 1, 16, seed=1)[:5]))
+    mops.selective_scan(*_t(*_scan_inputs(1, 3, 8, 4, seed=2)))
+    assert counts() == before
 
 
 # -- the selective scan ------------------------------------------------------------
@@ -187,6 +270,78 @@ def test_selective_scan_returns_y_in_u_dtype():
         tu.bfloat16(), tdt.bfloat16(), ta, tb.bfloat16(), tc.bfloat16(),
         torch.zeros((1, 32, 8)))
     assert torch.equal(y, want_y.bfloat16()) and torch.equal(h, want_h)
+
+
+def _decay_inputs(s, seed, regime):
+    """u, b, c normal; dt and A giving decays exp(dt A) in one regime:
+    Jamba's at full width (A = -1, dt = softplus(z)), near 1, near 0, or
+    at the edges (exactly 1, 1 - 1e-7, ~1e-30 and exactly 0), reached
+    through A with a small dt or, at a large dt, through dt (0, 1e-7,
+    69.08 and 200) with A = -1."""
+    rng = np.random.default_rng(seed)
+    b, di, n = 2, 48, 16
+    u = rng.standard_normal((b, s, di))
+    a = -np.ones((di, n))
+    if regime == "full_width":
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, di))))
+    elif regime == "near_1":
+        dt = 1e-4 * rng.uniform(size=(b, s, di))
+    elif regime == "near_0":
+        dt = rng.uniform(0.05, 0.1, (b, s, di))
+        a = -rng.uniform(200.0, 300.0, (di, n))
+    elif regime == "edges":
+        dt = rng.choice([0.0, 1e-7, 0.1], (b, s, di))
+        a = np.tile([-1.0, -690.7755, -1e30, -1.0], (di, n // 4))
+    else:
+        dt = rng.choice([0.0, 1e-7, 69.0776, 200.0], (b, s, di))
+    bb, c = (rng.standard_normal((b, s, n)) for _ in range(2))
+    h0 = rng.standard_normal((b, di, n)) * 0.2
+    return [np.asarray(x, np.float32) for x in (u, dt, a, bb, c, h0)]
+
+
+@pytest.mark.parametrize("s", [1, 37, 200])
+@pytest.mark.parametrize("regime", ["full_width", "near_1", "near_0",
+                                    "edges"])
+def test_selective_scan_exp2_holds_the_float64_scan(regime, s):
+    """The CUDA kernel's exponent, exp(dt A) as exp2(dt (A log2 e)) with
+    A log2 e rounded once to float32 (``ref.selective_scan_exp2``), keeps
+    the plain scan within 5e-5 of the scan evaluated in float64, and the
+    reference's oracle (float32) agrees with both."""
+    x = _decay_inputs(s, s, regime)
+    y, h = mref.selective_scan_exp2(*_t(*x))
+    want_y, want_h = mref.selective_scan(*(t.double() for t in _t(*x)))
+    assert y.dtype == h.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=SCAN_TOL,
+                               rtol=SCAN_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), atol=SCAN_TOL,
+                               rtol=SCAN_TOL)
+    oracle_y, oracle_h = jmref.selective_scan(*_j(*x))
+    _close(oracle_y, y, SCAN_TOL)
+    _close(oracle_h, h, SCAN_TOL)
+
+
+@pytest.mark.parametrize("s", [37, 200])
+@pytest.mark.parametrize("scan", ["selective_scan", "selective_scan_exp2"])
+def test_float32_scans_at_a_large_dt_hold_the_float32_bound(scan, s):
+    """At a large dt, y sums terms up to ~10^4 times its size, so no
+    float32 scan meets 5e-5 at every output; the plain float32 scans (exp,
+    and exp2 as the CUDA kernel takes it) and the reference's oracle stay
+    within 5e-5 plus ``ref.float32_error_bound`` of the float64 scan, the
+    rule ``chip_smoke.py`` holds the kernel to there.  The bound is far
+    below y's own scale."""
+    x = _decay_inputs(s, s, "large_dt")
+    want_y, want_h = mref.selective_scan(*(t.double() for t in _t(*x)))
+    bound_y, bound_h = mref.float32_error_bound(*_t(*x))
+    assert float(bound_y.max()) < 1e-5 * float(want_y.abs().max())
+    oracle_y, oracle_h = jmref.selective_scan(*_j(*x))
+    for y, h in (getattr(mref, scan)(*_t(*x)),
+                 (torch.tensor(np.asarray(oracle_y)),
+                  torch.tensor(np.asarray(oracle_h)))):
+        assert y.dtype == h.dtype == torch.float32
+        ey = (y.double() - want_y).abs()
+        eh = (h.double() - want_h).abs()
+        assert bool((ey <= SCAN_TOL * (1 + want_y.abs()) + bound_y).all())
+        assert bool((eh <= SCAN_TOL * (1 + want_h.abs()) + bound_h).all())
 
 
 # -- the layers ----------------------------------------------------------------
