@@ -14,10 +14,14 @@ without them.  It prints one JSON object per line:
              card, bitwise: quant_cast on small shapes, an all-zero
              block, a row holding a NaN and the main path's shapes; the
              streaming kernels on rows holding a NaN or both signed
-             zeros, W = 1, 7, 13 and 1024, sizes 1, 8,191 and 450,000, a
-             row off the 16-byte grid, join keys tied at both edges of
-             their band, 1 and 2 right keys, left counts that fill no
-             whole block, and the main path's shapes;
+             zeros, W = 1, 7, 13 and 1024, sizes 1, 7,500, 8,191, 8,192,
+             8,193 and 450,000, a row off the 16-byte grid, join keys
+             tied at both edges of their band, 1 and 2 right keys, left
+             counts that fill no whole block, and the main path's 450,000
+             x 450,000 keys in arrival order, shuffled, and with +-inf
+             and NaN keys (against the plain version of the kernel's
+             algorithm, ref.join_bounds_narrowed, whose routes it
+             prints; +-inf also against searchsorted);
 3. query     drives the query endpoint at the size of a real deployment
              (MIMIC II v2.6's ~32,500 subjects, 70 min of an 8-lead
              waveform at 125 Hz): the paper's §VI queries through
@@ -49,7 +53,9 @@ without them.  It prints one JSON object per line:
              wall time, each standing query's p50 tick latency, the ring
              export's share of the join's ticks (host, from the trace
              spans) and one join's card time by kernel and copy
-             (torch.profiler);
+             (torch.profiler); then each streaming kernel's device
+             kernels a call at its timed shapes (torch.profiler; 1 each,
+             or the phase fails);
 6. flash     flash attention against its plain version on the card, each
              case through the kernel its dtype and head dim route it to
              (the tensor-core kernel for bf16 at head dim 64 or 128, the
@@ -129,9 +135,13 @@ without them.  It prints one JSON object per line:
              time at S = 1 beside the state's bytes, mamba_scan's exp
              floor on the SFUs, the models' prefill seconds, ptxas's
              registers and spills and their SASS hot loops
-             (repro_torch.kernels._sass); for join_bounds
-             also the time its chains of dependent loads set, from a lone
-             key's levels; for
+             (repro_torch.kernels._sass); for the streaming kernels
+             their times at every main-path shape (window_minmax at (1,
+             450,000), (1, 7,500) and (1,024, 7,500), join_bounds at
+             450,000^2 in arrival order, sorted and shuffled and at
+             524,288^2), the routes the join's blocks took, the launch
+             floor (an empty kernel timed the same way), ptxas and
+             SASS; for
              flash attention its tensor-core route at Qwen2's and Jamba's
              shapes, the CUDA-core route in f32, the tensor-core kernel's
              registers and spills (ptxas) and whether its machine code
@@ -366,7 +376,10 @@ def stream_parity() -> dict:
     from repro_torch.kernels.stream import stream as sk
     err = {"window_minmax": 0.0, "join_bounds": 0.0}
     shapes = [(w, size) for w in (1, 7, 13) for size in (1, 8191, HOUR)]
-    shapes.append((1024, MINUTE))              # one-minute windows, batched
+    # the one-minute window alone (one block), the largest row one block
+    # takes and one value more (three blocks and a fold), one-minute
+    # windows batched
+    shapes += [(1, MINUTE), (1, 8192), (1, 8193), (1024, MINUTE)]
     for i, (w, size) in enumerate(shapes):
         x = torch.from_numpy(_minmax_rows(w, size, 20 + i)).cuda()
         # the last row again, 8 bytes off the 16-byte grid
@@ -402,6 +415,47 @@ def stream_parity() -> dict:
         err["join_bounds"] = max(err["join_bounds"], float(
             (lo - want_lo).abs().max()), float((hi - want_hi).abs().max()))
         emit({"phase": "parity", "kernel": "join_bounds", "case": [nl, nr],
+              "bitwise": True})
+    # the main path's 450,000 x 450,000 keys: left keys in the paired
+    # feed's arrival order (within +-2 of sorted), shuffled, and in arrival
+    # order with +-inf keys (their blocks search all of rs); then NaN keys,
+    # which the plain version of the kernel's algorithm answers as the
+    # reference's kernel does (0), where searchsorted answers len(rs)
+    geo = sk.join_geometry(HOUR, sk.load().repro_join_bounds_keys())
+    for order in ("arrival", "shuffled", "arrival_inf", "arrival_nan"):
+        lt_d, rs_d = join_inputs(order.split("_")[0], HOUR, copies=1)[0]
+        lt = lt_d.cpu().numpy()
+        if order != "arrival" and order != "shuffled":
+            bad = np.inf if order.endswith("inf") else np.nan
+            lt[[5, 70000, 70001, HOUR - 1]] = [bad, -bad, bad, -bad]
+            lt_d = torch.from_numpy(lt).cuda()
+        rs = rs_d.cpu().numpy()
+        lo, hi = sk.join_bounds_1d(lt_d, rs_d, tol, ops.steps(HOUR))
+        lo, hi = lo.cpu(), hi.cpu()
+        nlo, nhi, routes = ref.join_bounds_narrowed(
+            torch.from_numpy(lt), torch.from_numpy(rs), tol, geo.block,
+            sk.load().repro_join_bounds_budget())
+        check(torch.equal(lo, nlo) and torch.equal(hi, nhi),
+              f"join_bounds differs from its algorithm's plain version "
+              f"({order})")
+        if order.endswith("nan"):
+            nan = np.isnan(lt)
+            check(not lo.numpy()[nan].any() and not hi.numpy()[nan].any(),
+                  "join_bounds: a NaN key does not find 0")
+            keep = ~nan
+        else:
+            want_lo, want_hi = ref.join_bounds(lt_d, rs_d, tol)
+            check(torch.equal(lo, want_lo.cpu())
+                  and torch.equal(hi, want_hi.cpu()),
+                  f"join_bounds differs from the plain version ({order})")
+            keep = np.ones(HOUR, bool)
+        check(np.array_equal(lo.numpy()[keep], np.searchsorted(
+            rs, lt[keep] - tol, side="left")) and np.array_equal(
+            hi.numpy()[keep], np.searchsorted(rs, lt[keep] + tol,
+                                              side="right")),
+              f"join_bounds against np.searchsorted ({order})")
+        emit({"phase": "parity", "kernel": "join_bounds",
+              "case": [HOUR, HOUR, order], "routes": routes,
               "bitwise": True})
     return err
 
@@ -843,7 +897,8 @@ def join_checks(bd, value) -> None:
           and np.array_equal(hi.cpu().numpy(), np.searchsorted(
               rs_np, lt_np + 0.5, side="right")), "join bounds")
     emit({"phase": "stream", "feed": "paired", "checks": "passed",
-          "pairs": int(cols["dt"].shape[0])})
+          "pairs": int(cols["dt"].shape[0]),
+          "left_keys_sorted": bool((left[1:] >= left[:-1]).all())})
 
 
 # -- 6. flash attention against its plain version ----------------------------------
@@ -1745,106 +1800,168 @@ def _bound(nbytes: int, ops: int) -> dict:
             "bytes": nbytes, "operations": ops}
 
 
-def _minmax_times(w: int, size: int, copies: int) -> dict:
+# window_minmax's timed shapes: (W, size, copies, reps); the copies
+# rotate past the 50 MB L2 together.  (1, 450,000): the one-hour max, 3.6
+# MB a copy; (1, 7,500): the one-minute min, 60 KB a copy; (1024, 7,500):
+# one-minute windows batched, 61 MB a copy.
+MINMAX_TIMED = ((1, HOUR, 16, 20), (1, MINUTE, 1024, 2),
+                (1024, MINUTE, 2, 20))
+# join_bounds' timed shapes: (left key order, keys a side); right keys
+# 0.25 after the left ones, tol 0.5, as the main path's join
+JOIN_TIMED = (("arrival", HOUR), ("sorted", HOUR), ("shuffled", HOUR),
+              ("sorted", 524288))
+
+
+def minmax_inputs(w: int, size: int, copies: int) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    return [torch.randn((w, size), generator=gen, device="cuda",
+                        dtype=torch.float64) for _ in range(copies)]
+
+
+def join_inputs(order: str, n: int, copies: int = 8) -> list:
+    """``copies`` sets of (lt, rs): right keys 0, 1, ... shifted 0.25
+    (each set n further on), the left keys the same timestamps sorted, in
+    arrival order (the order of ts + U(-jitter, jitter) with the paired
+    feed's jitter) or shuffled; 8 copies of 450,000 keys a side rotate
+    past L2."""
+    rng = np.random.default_rng(SEED + 4)
+    sets = []
+    for i in range(copies):
+        ts = np.arange(n, dtype=np.float64) + i * n
+        if order == "arrival":
+            jitter = PAIRED_FEED["jitter"]
+            lt = ts[np.argsort(ts + rng.uniform(-jitter, jitter, n),
+                               kind="stable")]
+        elif order == "shuffled":
+            lt = rng.permutation(ts)
+        else:
+            lt = ts
+        sets.append((torch.from_numpy(lt).cuda(),
+                     torch.from_numpy(ts + 0.25).cuda()))
+    return sets
+
+
+def stream_device_kernels() -> dict:
+    """Device events (kernels, copies, fills) of one call of each
+    streaming kernel at each timed shape, after a first, untimed one, as
+    torch.profiler counts them: 1 each, or the phase fails.  Counted
+    beside the stream path, in the same process state as its feeds'
+    profiles."""
+    from repro_torch.kernels.stream import ops
+    from repro_torch.kernels.stream import stream as sk
+    counts = {}
+    for w, size, _, _ in MINMAX_TIMED:
+        x = minmax_inputs(w, size, 1)[0]
+        counts[f"window_minmax {w}x{size}"] = (
+            lambda x=x: sk.window_minmax_2d(x, True))
+    for order, n in JOIN_TIMED:
+        lt, rs = join_inputs(order, n, 1)[0]
+        counts[f"join_bounds {n}^2 {order}"] = (
+            lambda lt=lt, rs=rs, n=n: sk.join_bounds_1d(lt, rs, 0.5,
+                                                        ops.steps(n)))
+    for name, fn in counts.items():
+        fn()
+        # a trace that caught no device event missed the call's launch
+        # (the profiler sometimes does late in a long process): take it
+        # again, at most three times
+        for _ in range(3):
+            counts[name] = _device_times(fn)["device_events"]
+            if counts[name]:
+                break
+    emit({"phase": "stream", "device_kernels_per_call": counts})
+    for name, count in counts.items():
+        check(count == 1, f"{name}: {count} device kernels a call, not 1")
+    return counts
+
+
+def _minmax_times(w: int, size: int, copies: int, reps: int) -> dict:
     """window_minmax (max) at (w, size), its plain version and torch.amax,
-    over ``copies`` rotating inputs (past the 50 MB L2 together)."""
+    over ``copies`` rotating inputs."""
     from repro_torch.kernels.stream import ref
     from repro_torch.kernels.stream import stream as sk
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    xs = [torch.randn((w, size), generator=gen, device="cuda",
-                      dtype=torch.float64) for _ in range(copies)]
+    xs = minmax_inputs(w, size, copies)
     # torch.amax computes the same function on rows without a zero:
     # checked bitwise on these inputs before it is timed
     check(all(_same_bits(torch.amax(x, dim=1), sk.window_minmax_2d(x, True))
               for x in xs), "torch.amax differs from window_minmax")
-    out = {"shape": [w, size],
+    geo = sk.minmax_geometry(w, size, sk.load().repro_window_minmax_loads())
+    out = {"shape": [w, size], "copies": copies,
            "ms": _graph_ms([lambda x=x: sk.window_minmax_2d(x, True)
-                            for x in xs]),
+                            for x in xs], reps),
            "plain_ms": _graph_ms([lambda x=x: ref.window_minmax(x, True)
-                                  for x in xs]),
+                                  for x in xs], reps),
            "library_ms": _graph_ms([lambda x=x: torch.amax(x, dim=1)
-                                    for x in xs]),
-           "library": "torch.amax(x, dim=1)"}
+                                    for x in xs], reps),
+           "library": "torch.amax(x, dim=1)",
+           "blocks": w * geo.chunks, "threads": geo.threads}
     # read every value once, write one a row; one compare-select a value
     out.update(_bound(8 * w * size + 8 * w, w * size))
     return out
 
 
-def _latency_bound(rs: torch.Tensor, tol: float, nl: int,
-                   steps: int) -> dict:
-    """join_bounds' time as its chains of dependent loads set it: each
-    key's ``steps`` bisection levels (a load for lo and one for hi), with
-    at most the card's resident threads' keys in flight.  The time of
-    one level is the kernel's own, for one lone key: the difference
-    between ``steps`` levels and 5 over 2 ** 19 right keys, whose levels
-    6 on each load a line the key has not loaded (an L2 hit, L1 being
-    cold at launch) until the last four, which share one."""
-    from repro_torch.kernels.stream import stream as sk
-    props = torch.cuda.get_device_properties(0)
-    resident = (props.multi_processor_count
-                * props.max_threads_per_multi_processor)
-    lt = rs[123457:123458] - 0.25             # one key inside the range
-    full = _graph_ms([lambda: sk.join_bounds_1d(lt, rs, tol, steps)],
-                     reps=100)
-    short = _graph_ms([lambda: sk.join_bounds_1d(lt, rs, tol, 5)],
-                      reps=100)
-    level_ms = (full - short) / (steps - 5)
-    waves = -(-nl // resident)
-    return {"latency_bound_ms": waves * steps * level_ms,
-            "level_ms": level_ms, "resident_threads": resident,
-            "waves": waves,
-            "note": ("latency_bound_ms = waves x steps x level_ms: a model "
-                     "of the dependent loads from a lone key's levels, "
-                     "not a floor (keys that share a level's line in one "
-                     "SM may find it in L1); bound_ms is the bytes bound")}
-
-
-def stream_kernel_rows(launches: dict, err: dict) -> list:
+def _join_times(order: str, n: int) -> dict:
+    """join_bounds at n x n keys with the left keys in ``order``, its
+    plain version and two torch.searchsorted, over 8 rotating sets; the
+    routes its blocks take (the plain version of its algorithm)."""
     from repro_torch.kernels.stream import ops, ref
     from repro_torch.kernels.stream import stream as sk
-    source = "src/repro_torch/kernels/stream/csrc/stream.cu"
-    # (1, 450,000): the main path's one-hour window, 3.6 MB; sixteen
-    # copies rotate past L2.  (1024, 7,500): one-minute windows batched,
-    # 61 MB a copy, past L2 by itself.
-    minmax = _minmax_times(1, HOUR, 16)
-    minmax["note"] = ("at W = 1 the latency of its two launches dominates: "
-                      "3.6 MB take ~1 us at the memory rate")
-    minmax["batched"] = _minmax_times(1024, MINUTE, 2)
-    # join_bounds at 524,288 x 524,288 keys shaped like the main path's
-    # (right keys 0.25 after the left ones, tol 0.5); eight copies of
-    # the 8.4 MB of keys rotate past L2
-    n, tol = 524288, 0.5
-    steps = ops.steps(n)
-    keys = []
-    for i in range(8):
-        lt = torch.arange(n, dtype=torch.float64, device="cuda") + i * n
-        keys.append((lt, lt + 0.25))
-    join = {"shape": [n, n], "steps": steps,
-            "ms": _graph_ms([lambda a=a, b=b: sk.join_bounds_1d(a, b, tol,
-                                                                 steps)
-                             for a, b in keys]),
-            "plain_ms": _graph_ms([lambda a=a, b=b: ref.join_bounds(a, b,
-                                                                     tol)
-                                   for a, b in keys]),
-            "library_ms": _graph_ms([
-                lambda a=a, b=b: (torch.searchsorted(b, a - tol),
-                                  torch.searchsorted(b, a + tol,
-                                                     right=True))
-                for a, b in keys]),
-            "library": "torch.searchsorted x2 (two calls)",
-            "dependent_loads_per_key": 2 * steps}
+    tol, steps = 0.5, ops.steps(n)
+    sets = join_inputs(order, n)
+    geo = sk.join_geometry(n, sk.load().repro_join_bounds_keys())
+    lt, rs = sets[0]
+    *_, routes = ref.join_bounds_narrowed(
+        lt.cpu(), rs.cpu(), tol, geo.block,
+        sk.load().repro_join_bounds_budget())
+    out = {"shape": [n, n], "order": order, "steps": steps,
+           "routes": routes,
+           "ms": _graph_ms([lambda a=a, b=b: sk.join_bounds_1d(a, b, tol,
+                                                                steps)
+                            for a, b in sets]),
+           "plain_ms": _graph_ms([lambda a=a, b=b: ref.join_bounds(a, b,
+                                                                    tol)
+                                  for a, b in sets]),
+           "library_ms": _graph_ms([
+               lambda a=a, b=b: (torch.searchsorted(b, a - tol),
+                                 torch.searchsorted(b, a + tol, right=True))
+               for a, b in sets]),
+           "library": "torch.searchsorted x2 (two calls)",
+           "blocks": geo.blocks}
     # read both key arrays, write lo and hi; per left key two roundings
     # and 2 * steps compares
-    join.update(_bound(8 * n + 8 * n + 4 * n + 4 * n, n * (2 + 2 * steps)))
-    join.update(_latency_bound(keys[0][1], tol, n, steps))
+    out.update(_bound(8 * n + 8 * n + 4 * n + 4 * n, n * (2 + 2 * steps)))
+    return out
+
+
+def stream_kernel_rows(launches: dict, err: dict, kernels: dict) -> list:
+    """Both streaming kernels at every shape of MINMAX_TIMED and
+    JOIN_TIMED (the first of each is the row's own), with their device
+    kernels a call (``kernels``, stream_device_kernels), the launch
+    floor (an empty kernel timed the same way), ptxas's registers and
+    spills and their SASS hot loops."""
+    from repro_torch.kernels.stream import stream as sk
+    source = "src/repro_torch/kernels/stream/csrc/stream.cu"
+    floor = _graph_ms([lambda: sk.empty_launch(torch.device("cuda"))],
+                      reps=100)
+    machine = {"ptxas": _ptxas("stream"),
+               "sass": _sass("stream", sk.SOURCES)}
+    minmax = [_minmax_times(*shape) for shape in MINMAX_TIMED]
+    join = [_join_times(*shape) for shape in JOIN_TIMED]
+    for t in minmax:
+        t["device_kernels_per_call"] = kernels[
+            "window_minmax {}x{}".format(*t["shape"])]
+    for t in join:
+        t["device_kernels_per_call"] = kernels[
+            "join_bounds {}^2 {}".format(t["shape"][0], t["order"])]
     rows = []
-    for name, t, line in (("window_minmax", minmax, 66),
-                          ("join_bounds", join, 106)):
+    for name, times, line in (("window_minmax", minmax, 66),
+                              ("join_bounds", join, 106)):
         rows.append({"name": f"stream.{name}", "route": "cuda",
                      "source": source,
                      "replaces": f"{STREAM_REPLACES}:{line}",
                      "launches": launches[name],
-                     "max_abs_err": err[name], **t})
+                     "max_abs_err": err[name], **times[0],
+                     "other_shapes": times[1:],
+                     "launch_floor_ms": floor, **machine})
     return rows
 
 
@@ -1960,13 +2077,19 @@ def _f32_bound(nbytes: int, ops: int) -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """A scan kernel's mangled name as kernel<template argument>."""
+    """A scan or streaming kernel's mangled name as kernel<template
+    argument>."""
     m = re.search(r"(?<=\d)((?:wkv6|scan)\w*?_kernel)I"
                   r"(Li(\d+)E|f|13__nv_bfloat16)", mangled)
-    if not m:
-        return mangled
-    arg = m.group(3) or ("float" if m.group(2) == "f" else "bfloat16")
-    return f"{m.group(1)}<{arg}>"
+    if m:
+        arg = m.group(3) or ("float" if m.group(2) == "f" else "bfloat16")
+        return f"{m.group(1)}<{arg}>"
+    m = re.search(r"(?<=\d)(minmax_rows|join_bounds_blocks|empty_kernel)"
+                  r"(?:ILb([01])E)?", mangled)
+    if m:
+        arg = {None: "", "0": "<false>", "1": "<true>"}[m.group(2)]
+        return m.group(1) + arg
+    return mangled
 
 
 def _ptxas(library: str) -> dict:
@@ -2180,6 +2303,7 @@ def main() -> int:
     check(stats["fallbacks"] == 0 and stats["executions"] > 0,
           f"compiled path: {stats}")
     join_checks(bds, join)
+    stream_kernels = stream_device_kernels()
     del join, bds
     torch.cuda.empty_cache()
 
@@ -2201,7 +2325,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows = quant_kernel_rows(launches, err)
-    rows += stream_kernel_rows(stream_launches, stream_err)
+    rows += stream_kernel_rows(stream_launches, stream_err, stream_kernels)
     rows += flash_kernel_rows(serve["launches"] + jamba["flash_attention"],
                               flash_err)
     rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],

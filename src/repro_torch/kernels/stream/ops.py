@@ -23,10 +23,7 @@ def _route(t: torch.Tensor) -> str:
 def steps(n: int) -> int:
     """Bisection iterations over ``n`` sorted keys, as the reference's
     ``join_bounds`` sets them: ``ceil(log2(max(n, 2))) + 1``."""
-    s = 1
-    while (1 << s) < max(int(n), 2):
-        s += 1
-    return s + 1
+    return ref.levels(n)
 
 
 def window_minmax(windows: torch.Tensor, is_max: bool) -> torch.Tensor:

@@ -100,7 +100,8 @@ def _rows(w, size, seed):
 @pytest.mark.parametrize("is_max", [False, True], ids=["min", "max"])
 @pytest.mark.parametrize("w,size", [(1, 1), (1, 8191), (1, 450000),
                                     (7, 8191), (13, 1), (13, 2049),
-                                    (1024, 7500)])
+                                    (1024, 7500), (1, 7500), (1, 8192),
+                                    (1, 8193), (13, 450000)])
 def test_window_minmax_matches_plain_version_on_card(card, w, size, is_max):
     x = torch.from_numpy(_rows(w, size, w + size)).to(card)
     got = sk.window_minmax_2d(x, is_max)
@@ -128,6 +129,165 @@ def test_join_bounds_matches_plain_version_on_card(card, nl, nr):
     lo, hi = sk.join_bounds_1d(lt_d, rs_d, tol, sops.steps(nr))
     want_lo, want_hi = sref.join_bounds(lt_d, rs_d, tol)
     assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+
+
+def _join_keys(n, order, seed, bad=None):
+    """Right keys 0.25 after the timestamps 0 .. n-1; left keys the
+    timestamps sorted, in the paired feed's arrival order (within +-2 of
+    sorted), or shuffled; ``bad`` (inf or nan) at a few left keys, both
+    signs."""
+    rng = np.random.default_rng(seed)
+    ts = np.arange(n, dtype=np.float64)
+    lt = {"sorted": ts.copy(),
+          "arrival": ts[np.argsort(ts + rng.uniform(-2, 2, n),
+                                   kind="stable")],
+          "shuffled": rng.permutation(ts)}[order]
+    if bad is not None:
+        lt[[3, n // 2, n // 2 + 1, n - 1]] = [bad, -bad, bad, -bad]
+    return lt, ts + 0.25
+
+
+@pytest.mark.parametrize("order", ["sorted", "arrival", "shuffled"])
+@pytest.mark.parametrize("bad", [None, np.inf], ids=["finite", "inf"])
+def test_join_bounds_main_path_orders_on_card(card, order, bad):
+    lt, rs = _join_keys(450000, order, 11, bad)
+    lo, hi = sk.join_bounds_1d(torch.from_numpy(lt).to(card),
+                               torch.from_numpy(rs).to(card), 0.5,
+                               sops.steps(rs.size))
+    np.testing.assert_array_equal(lo.cpu().numpy(),
+                                  np.searchsorted(rs, lt - 0.5, "left"))
+    np.testing.assert_array_equal(hi.cpu().numpy(),
+                                  np.searchsorted(rs, lt + 0.5, "right"))
+
+
+def test_join_bounds_takes_every_route_on_card(card):
+    """Blocks whose slice fits the kernel's budget (staged in shared
+    memory), passes it by one key or by many (searched in device memory),
+    and a block holding a NaN key (all of rs), against the plain version
+    of the kernel's algorithm (a NaN key finds 0, as the reference's
+    kernel answers)."""
+    budget = sk.load().repro_join_bounds_budget()
+    block = sk.join_geometry(1).block
+    lt, rs = _join_keys(6 * block + budget, "arrival", 12)
+    # block 1's keys reach exactly `budget` right keys, block 2's one more
+    # (tol 0.5 and right keys 0.25 after the timestamps: [t0, t0 + span)
+    # reaches the span's keys)
+    for b, span in ((1, budget), (2, budget + 1)):
+        keys = lt[b * block:(b + 1) * block]
+        keys[:] = b * block + np.linspace(0, span - 1, block)
+    lt[3 * block:4 * block] = np.linspace(0, lt.size - 1, block)  # all of rs
+    lt[4 * block + 7] = np.nan
+    lo, hi = sk.join_bounds_1d(torch.from_numpy(lt).to(card),
+                               torch.from_numpy(rs).to(card), 0.5,
+                               sops.steps(rs.size))
+    want_lo, want_hi, routes = sref.join_bounds_narrowed(
+        torch.from_numpy(lt), torch.from_numpy(rs), 0.5, block, budget)
+    assert torch.equal(lo.cpu(), want_lo) and torch.equal(hi.cpu(), want_hi)
+    assert routes["staged"] >= 2 and routes["wide"] == 2
+    assert routes["full"] == 1 and lo[4 * block + 7] == hi[4 * block + 7] == 0
+
+
+def _identical(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return _same_bits(a, b) if a.is_floating_point() else torch.equal(a, b)
+
+
+def _minmax_and_join(card):
+    x = torch.from_numpy(_rows(3, 450000, 13)).to(card)
+    lt, rs = _join_keys(450000, "arrival", 14)
+    lt, rs = torch.from_numpy(lt).to(card), torch.from_numpy(rs).to(card)
+    steps = sops.steps(rs.numel())
+    return lambda: (sk.window_minmax_2d(x, True),
+                    sk.window_minmax_2d(x[:1], False),
+                    *sk.join_bounds_1d(lt, rs, 0.5, steps))
+
+
+def test_stream_kernels_are_bitwise_repeatable(card):
+    """1,000 calls back to back give the first call's bits: each launch of
+    a split row leaves its arrival counters at 0 for the next."""
+    run = _minmax_and_join(card)
+    first = run()
+    outs = [run() for _ in range(1000)]
+    torch.cuda.synchronize()
+    assert all(all(_identical(a, b) for a, b in zip(first, out))
+               for out in outs)
+
+
+def test_stream_kernels_launch_under_graph_capture(card):
+    """Both kernels allocate nothing but their outputs and scratch in a
+    launch (a split row's counters are the capture's own): a CUDA graph
+    captures them, and its replays give the eager bits."""
+    run = _minmax_and_join(card)
+    want = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [run() for _ in range(4)]
+    for _ in range(50):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(_identical(a, b) for out in outs
+                   for a, b in zip(want, out))
+
+
+def test_stream_kernels_on_two_streams_at_once(card):
+    """Split rows launched on two streams at once, each with its own
+    arrival counters, are right."""
+    xs = [torch.from_numpy(_rows(2, 450000, 20 + i)).to(card)
+          for i in range(2)]
+    want = [sref.window_minmax(x, True) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(200):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[i].append(sk.window_minmax_2d(x, True))
+    torch.cuda.synchronize()
+    assert all(_same_bits(o, want[i]) for i in range(2) for o in outs[i])
+
+
+def _device_events(fn) -> int:
+    """Device events (kernels, copies, fills) of one call, after a first,
+    as torch.profiler counts them.  Each traced call must launch once (the
+    wrapper's count); a trace that caught no device event at all missed
+    that launch, as the profiler sometimes does late in a long process,
+    and is taken again, at most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        before = sum(sk.launch_counts().values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert sum(sk.launch_counts().values()) == before + 1
+        events = sum(ev.count for ev in prof.key_averages()
+                     if ev.device_type != DeviceType.CPU
+                     and not ev.key.startswith("Activity Buffer")
+                     and ev.self_device_time_total > 0)
+        if events:
+            return events
+    return 0
+
+
+@pytest.mark.parametrize("what", ["minmax_hour", "minmax_minute", "join"])
+def test_stream_kernels_are_one_device_kernel_a_call(card, what):
+    if what == "join":
+        lt, rs = _join_keys(450000, "arrival", 15)
+        lt, rs = torch.from_numpy(lt).to(card), torch.from_numpy(rs).to(card)
+        fn = lambda: sk.join_bounds_1d(lt, rs, 0.5, 20)  # noqa: E731
+    else:
+        size = 450000 if what == "minmax_hour" else 7500
+        x = torch.from_numpy(_rows(1, size, 16)).to(card)
+        fn = lambda: sk.window_minmax_2d(x, True)  # noqa: E731
+    assert _device_events(fn) == 1
 
 
 def test_stream_ops_route_cuda_tensors_to_the_kernels(card):
