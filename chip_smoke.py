@@ -56,6 +56,19 @@ without them.  It prints one JSON object per line:
              (torch.profiler); then each streaming kernel's device
              kernels a call at its timed shapes (torch.profiler; 1 each,
              or the phase fails);
+5b. durable  the waveform feed of phase 5 made durable (a segment log
+             and a checkpoint every 262,144 logged rows, the last three
+             kept), under the same four standing queries: killed at its
+             120th log write (a torn record) by an armed crash point,
+             recovered through ``recover_stream`` into a fresh
+             deployment, its fingerprint held to an uncrashed twin fed
+             the same durable prefix, then both fed the rest and every
+             tick of the recovered one held bit for bit to the twin's;
+             the same for the 4-shard feed, killed right after its third
+             checkpoint's save; window_minmax launched after recovery;
+             log bytes, rows replayed and recovery seconds, a blocking
+             and an async checkpoint's seconds, and the feed's append
+             and tick p50 with durability and without, in turns;
 6. flash     flash attention against its plain version on the card, each
              case through the kernel its dtype and head dim route it to
              (the tensor-core kernel for bf16 at head dim 64 or 128, the
@@ -101,6 +114,17 @@ without them.  It prints one JSON object per line:
              repeatable, every logit finite; prefill and decode seconds a
              wave, decode tokens/s and peak device memory; and one decode
              step's card time against its wall time (torch.profiler);
+8b. seamless seamless-m4t-medium (the encoder-decoder: 12 + 12 layers,
+             d_model 1024, 16 heads of 64, vocab 256206) at its published
+             width, served as phase 8 serves Qwen2 (every attention block
+             rescaled to its true fan-in; the stub audio frontend's zero
+             frames): the decoder's causal self-attention through the
+             flash kernel's tensor-core route (12 launches a prefill; the
+             encoder and the cross-attention run the plain path, as in
+             the reference), the prefill against the plain path and the
+             last decode step against a full forward, 5e-2 of the
+             largest logit, row by row; prefill and decode seconds,
+             decode tokens/s and peak device memory a wave;
 9. families  RWKV6-7B at full width (32 layers, d_model 4096, vocab
              65536) and Jamba-v0.1 at full width cut to one period of 8
              layers (13.3 B params), bf16 params drawn on the card leaf by
@@ -129,8 +153,9 @@ without them.  It prints one JSON object per line:
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
-             launches on its path (phases 3-4 for quant_cast, phase 5 for
-             the streaming kernels, phases 8 and 9 for flash attention,
+             launches on its path (phases 3-4 for quant_cast, phases 5
+             and 5b for the streaming kernels, phases 8, 8b and 9 for
+             flash attention,
              phase 9 for the scans, by route); for the scans also their
              time at S = 1 beside the state's bytes, mamba_scan's exp
              floor on the SFUs, the models' prefill seconds, ptxas's
@@ -145,7 +170,8 @@ without them.  It prints one JSON object per line:
              flash attention its tensor-core route at Qwen2's and Jamba's
              shapes, the CUDA-core route in f32, the tensor-core kernel's
              registers and spills (ptxas) and whether its machine code
-             holds wgmma (HGMMA) and TMA loads (UTMALDG);
+             holds wgmma (HGMMA) and TMA loads (UTMALDG), and the
+             seamless decoder's shape (8, 1024, 16/16, 64);
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
@@ -157,6 +183,8 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -901,6 +929,259 @@ def join_checks(bd, value) -> None:
           "left_keys_sorted": bool((left[1:] >= left[:-1]).all())})
 
 
+# -- 5b. durable streams: crash, recover, continue ------------------------------------
+# the durable ICU feed: the waveform ring of phase 5 with a segment log and
+# a checkpoint every 262,144 logged rows (every 35th one-minute batch),
+# keeping the last three; the plain feed is killed at its 120th log write
+# (torn: a record header on disk, no payload), the 4-shard feed right
+# after its third checkpoint's async save started, which the kill takes
+# with it; (point, hit, async saves the kill takes)
+DURABLE = dict(checkpoint_every_rows=262144, keep=3)
+DURABLE_CRASHES = {"plain": ("stream/log:torn", 120, 0),
+                   "sharded": ("stream/checkpoint:saved", 3, 1)}
+SHARDED_DURABLE = dict(shards=4, num_engines=2)
+
+
+def _durable_deployment(directory, queries, shards: int):
+    """A deployment whose waveform stream is registered as the feed
+    registers it, with ``directory``'s durability when one is given, and
+    the standing ``queries`` on it."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.stream.spec import Durability, StreamSpec
+    bd = default_deployment(stream_engines=2)
+    kw = dict(SHARDED_DURABLE) if shards > 1 else {}
+    spec = StreamSpec.from_kwargs(
+        WAVE, ("signal", "hr"), capacity=WAVE_FEED["capacity"], **kw)
+    if directory is not None:
+        spec = dataclasses.replace(spec, durability=Durability(
+            str(directory), **DURABLE))
+    bd.register_stream("streamstore0", spec)
+    cqs = {name: bd.register_continuous(q, every, name=name)
+           for name, (q, every) in queries.items()}
+    return bd, cqs
+
+
+def _feed_batches(bd, batches, tick: bool = True) -> list:
+    """Append each (signal, hr) batch and tick; per batch the ticked
+    queries' results and the host seconds of the append and the tick."""
+    stream = bd.engines["streamstore0"].get(WAVE)
+    out = []
+    for signal, hr in batches:
+        t0 = time.perf_counter()
+        stream.append({"signal": signal, "hr": hr})
+        t1 = time.perf_counter()
+        ran = bd.streams.tick() if tick else []
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.append({"values": [(n, bd.streams.queries[n].last_value)
+                               for n, _ in ran],
+                    "append_s": t1 - t0, "tick_s": t2 - t1})
+    return out
+
+
+def _p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _same_ticks(a: list, b: list) -> bool:
+    """Two feeds' ticks ran the same queries with bit-identical results."""
+    return len(a) == len(b) and all(
+        [n for n, _ in x["values"]] == [n for n, _ in y["values"]]
+        and all(_same_value(u, v) for (_, u), (_, v)
+                in zip(x["values"], y["values"]))
+        for x, y in zip(a, b))
+
+
+def _crash_and_recover(root, batches, queries, shards: int,
+                       launches) -> dict:
+    """Feed a durable deployment until its armed crash point fires, then
+    recover the stream into a fresh deployment, hold it to an uncrashed
+    twin fed the same durable prefix (fingerprint), feed both the rest
+    and hold every tick of the recovered one to the twin's, bit for
+    bit.  ``launches()`` reads window_minmax's launch count."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.runtime import fault
+    from repro_torch.stream import durability as dur
+    kind = "sharded" if shards > 1 else "plain"
+    point, at_hit, saves_lost = DURABLE_CRASHES[kind]
+    directory = root / kind
+    bd, _ = _durable_deployment(directory, queries, shards)
+    durable = bd.engines["streamstore0"].get(WAVE)._durable
+    died = []                     # threads the kill reached
+
+    def hook(args):
+        if args.exc_type is fault.SimulatedCrash:
+            died.append(args.exc_value.point)
+        else:
+            default_hook(args)
+
+    default_hook, threading.excepthook = threading.excepthook, hook
+    fault.arm_crash_point(point, at_hit)
+    crashed_at = exc_point = None
+    try:
+        for b, batch in enumerate(batches):
+            crashed_at = b
+            _feed_batches(bd, [batch])
+        crashed_at = None
+    except fault.SimulatedCrash as exc:
+        # a kill takes the process's other threads with it: an async
+        # save still in flight dies before its promote (this arming
+        # comes microseconds after the save's thread started, long
+        # before its ~10 ms of writes end)
+        report = fault.disarm_crash_points()
+        fault.arm_crash_point("checkpoint/promote")
+        exc_point = exc.point
+    else:
+        report = fault.disarm_crash_points()
+    try:
+        durable.manager.wait()              # join the save, dead or done
+    finally:
+        fault.disarm_crash_points()
+        threading.excepthook = default_hook
+    check(crashed_at is not None and exc_point == point
+          and report["fired"] == point and len(report["hits"]) == at_hit,
+          f"{kind}: {point} fired {report['fired']!r} after "
+          f"{len(report['hits'])} hits")
+    check(crashed_at >= len(batches) // 2,
+          f"{kind}: crashed in the first half (batch {crashed_at})")
+    check(died == ["checkpoint/promote"] * saves_lost,
+          f"{kind}: the kill took {died} of the async saves, not "
+          f"{saves_lost}")
+    stats = durable.stats()
+    durable.close()
+    del bd
+    rec = default_deployment(stream_engines=2)
+    t0 = time.perf_counter()
+    stream = rec.recover_stream("streamstore0", str(directory))
+    recover_s = time.perf_counter() - t0
+    last = stream._durable.last_recovery
+    check(last["rows_replayed"] > 0,
+          f"{kind}: recovery replayed no rows of the log")
+    rows = WAVE_FEED["batch_rows"]
+    check(stream.total_appended % rows == 0,
+          f"{kind}: recovered {stream.total_appended} rows, not whole "
+          f"batches")
+    done = stream.total_appended // rows
+    check(done <= crashed_at + 1, f"{kind}: recovered past the crash")
+    twin, _ = _durable_deployment(None, {}, shards)
+    _feed_batches(twin, batches[:done], tick=False)
+    twin_stream = twin.engines["streamstore0"].get(WAVE)
+    check(dur.fingerprint(stream) == dur.fingerprint(twin_stream),
+          f"{kind}: the recovered stream's fingerprint differs from the "
+          f"twin's")
+    cqs = {name: rec.register_continuous(q, every, name=name)
+           for name, (q, every) in queries.items()}
+    for name, (q, every) in queries.items():
+        twin.register_continuous(q, every, name=name)
+    rest = batches[done:]
+    got, want, minmax = [], [], 0
+    for batch in rest:
+        before = launches()
+        got += _feed_batches(rec, [batch])
+        minmax += launches() - before
+        want += _feed_batches(twin, [batch])
+    check(_same_ticks(got, want),
+          f"{kind}: a tick after recovery differs from the twin's")
+    check(dur.fingerprint(stream) == dur.fingerprint(twin_stream),
+          f"{kind}: the fed streams' fingerprints differ")
+    for name, cq in cqs.items():
+        check(cq.errors == 0 and cq.executions > 0,
+              f"{kind} {name} after recovery: {cq.metrics()}")
+    stream._durable.close()
+    return {"feed": kind, "crash_point": point, "crash_hit": at_hit,
+            "async_saves_lost": len(died), "crashed_at_batch": crashed_at, "batches_recovered": done,
+            "log_bytes": stats["log_bytes"],
+            "log_segments": stats["segments"],
+            "checkpoints_before_crash": stats["checkpoints"],
+            "recovered_from_checkpoint": last["checkpoint_step"],
+            "records_replayed": last["records_replayed"],
+            "rows_replayed": last["rows_replayed"],
+            "truncated_records": last["truncated_records"],
+            "recover_s": last["seconds"], "recover_stream_s": recover_s,
+            "ticks_compared": len(rest),
+            "window_minmax_after_recovery": minmax,
+            "queries_after_recovery": {n: cq.metrics()["p50_latency_ms"]
+                                       for n, cq in cqs.items()}}
+
+
+def _checkpoint_seconds(root, batches) -> dict:
+    """One blocking and one async checkpoint of the full ring (after
+    the whole feed, no cadence), each timed to its return; the async
+    one also to its landing (``manager.wait``)."""
+    bd, _ = _durable_deployment(root / "ckpt", {}, 1)
+    _feed_batches(bd, batches, tick=False)
+    durable = bd.engines["streamstore0"].get(WAVE)._durable
+    t0 = time.perf_counter()
+    durable.checkpoint(blocking=True)
+    blocking = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    durable.checkpoint(blocking=False)
+    returned = time.perf_counter() - t0
+    durable.manager.wait()
+    landed = time.perf_counter() - t0
+    step = durable.manager.latest_step()
+    path = root / "ckpt" / "ckpt" / f"step_{step:08d}"
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    durable.close()
+    return {"blocking_s": blocking, "async_return_s": returned,
+            "async_landed_s": landed, "checkpoint_bytes": nbytes}
+
+
+def _turns(root, batches, queries) -> dict:
+    """The same feed with durability and without, in turns (durable,
+    plain, durable, plain): per turn the p50 host seconds of an append
+    and of a tick, and each standing query's p50."""
+    out = {"durable": [], "plain": []}
+    for i, kind in enumerate(("durable", "plain", "durable", "plain")):
+        directory = root / f"turn{i}" if kind == "durable" else None
+        bd, cqs = _durable_deployment(directory, queries, 1)
+        ticks = _feed_batches(bd, batches)
+        if directory is not None:
+            bd.engines["streamstore0"].get(WAVE)._durable.close()
+        out[kind].append({
+            "append_p50_ms": 1e3 * _p50([t["append_s"] for t in ticks]),
+            "tick_p50_ms": 1e3 * _p50([t["tick_s"] for t in ticks]),
+            "feed_s": sum(t["append_s"] + t["tick_s"] for t in ticks),
+            "queries_p50_ms": {n: cq.metrics()["p50_latency_ms"]
+                               for n, cq in cqs.items()}})
+        del bd, cqs
+    return out
+
+
+def durable_feed(root) -> dict:
+    """Phase 5b: the ICU waveform feed made durable, crashed and
+    recovered (plain and 4-shard), its checkpoints timed, and its ticks
+    with durability against without, in turns.  Returns window_minmax's
+    launches on this path: the whole phase and after the recoveries."""
+    from repro_torch.kernels.stream import stream as sk
+    _set_backend("jit")
+    queries = WAVE_QUERIES
+    signal, hr = _waveform_rows(WAVE_FEED["batch_rows"],
+                                WAVE_FEED["num_batches"], WAVE_FEED["seed"])
+    n = WAVE_FEED["batch_rows"]
+    batches = [(signal[i:i + n], hr[i:i + n])
+               for i in range(0, signal.shape[0], n)]
+    def count():
+        return sk.launch_counts()["window_minmax"]
+
+    sk.reset_launch_counts()              # the durable path starts here
+    crashes = [_crash_and_recover(root, batches, queries, shards, count)
+               for shards in (1, 4)]
+    total = count()                       # ... and ends here
+    for c in crashes:
+        emit({"phase": "durable", **c})
+    ckpt = _checkpoint_seconds(root, batches)
+    turns = _turns(root, batches, queries)
+    emit({"phase": "durable", "checkpoint": ckpt, "turns": turns})
+    after = sum(c["window_minmax_after_recovery"] for c in crashes)
+    check(after > 0, "no window_minmax launch after recovery")
+    emit({"phase": "durable", "checks": "passed",
+          "window_minmax_launches": total,
+          "window_minmax_after_recovery": after})
+    return {"window_minmax": total, "after_recovery": after}
+
+
 # -- 6. flash attention against its plain version ----------------------------------
 def _qkv(b, s, t, hq, hkv, dh, dtype, seed):
     rng = np.random.default_rng(seed)
@@ -1247,11 +1528,10 @@ def _large_dt_witness(x, exact_y, exact_h, y, want_y, y_tol, h_tol,
 
 
 # -- 7. serving Qwen2-1.5B at full width --------------------------------------------
-def _serve_prompts():
+def _serve_prompts(vocab: int = 151936):
     """Wave A: eight 1,024-token prompts (numpy seed 0); wave B: eight of
     600 to 1,000 tokens (seed 1), the longest 1,000, off the 128 grid."""
     from repro_torch.serve.engine import Request
-    vocab = 151936
     rng = np.random.default_rng(SEED)
     a = [rng.integers(0, vocab, WAVE_A_LEN).astype(np.int32)
          for _ in range(SERVE["max_batch"])]
@@ -1287,9 +1567,11 @@ def _decode_and_forward(session, wave, completions):
     over the padded prompts and the tokens generated before that step."""
     from repro_torch.models import registry
     toks = np.stack([c.tokens for c in completions])
-    seq = np.concatenate([_padded(wave), toks[:, :-1]], axis=1)
-    logits, _ = registry.forward(session.params, {
-        "tokens": torch.from_numpy(seq).cuda()}, session.cfg)
+    prompts = _padded(wave)
+    seq = np.concatenate([prompts, toks[:, :-1]], axis=1)
+    batch = session.frontend_batch(prompts)   # the stub frontend's inputs
+    batch["tokens"] = torch.from_numpy(seq).cuda()
+    logits, _ = registry.forward(session.params, batch, session.cfg)
     check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
     return logits[:, -1], session.last_logits
 
@@ -1308,8 +1590,13 @@ def _draw_params(cfg):
 
 
 def _unit_scale_attention(params, sub: str = "sub0") -> None:
-    """Rescale the attention projections, in place, to the fan-in of the
-    dimensions they contract.  The reference's ``_init_one`` takes the
+    """``_unit_scale`` of the stacked attention mixer ``sub``."""
+    _unit_scale(params["blocks"][sub]["mixer"])
+
+
+def _unit_scale(m) -> None:
+    """Rescale a stack of attention projections ``m``, in place, to the
+    fan-in of the dimensions they contract.  The reference's ``_init_one`` takes the
     fan-in from a weight's second-to-last dimension, which for the
     (d_model, heads, head_dim) projections is the head count (12 or 2),
     not the 1,536 inputs they sum over: at full width q.k scores come out
@@ -1319,7 +1606,6 @@ def _unit_scale_attention(params, sub: str = "sub0") -> None:
     any logit bound.  After this, scores have unit scale, as in a trained
     model; the flash parity phase holds the kernel at the saturated
     scale."""
-    m = params["blocks"][sub]["mixer"]              # stacked: (L, ...)
     for name in ("wq", "wk", "wv"):                  # (L, d, heads, dh)
         m[name] *= (m[name].shape[-2] / m[name].shape[1]) ** 0.5
     wo = m["wo"]                                     # (L, heads, dh, d)
@@ -1436,6 +1722,114 @@ def serve_phase() -> dict:
     emit({"phase": "serve", "checks": "passed"})
     return {"launches": launches,
             "prefill_s": {w: waves[w]["prefill_s"] for w in ("A", "B")}}
+
+
+# -- 8b. serving seamless-m4t-medium at full width ---------------------------------
+SEAMLESS_SHAPE = (8, WAVE_A_LEN, 16, 16, 64)   # B, S, Hq, Hkv, Dh
+
+
+def serve_seamless_phase() -> dict:
+    """seamless-m4t-medium (the encoder-decoder) at its published width,
+    attn_impl="flash", float32 params drawn on the card from seed 0 with
+    every attention block (the encoder's, the decoder's self- and
+    cross-attention) at its true fan-in, served through ``Scheduler`` as
+    phase 8 serves Qwen2 (waves A and B, 32 new tokens, the stub audio
+    frontend's zero frames): the decoder's causal self-attention through
+    the flash kernel's tensor-core route, 12 launches a prefill; the
+    prefill against the plain path and the last decode step against a
+    full forward through the plain path (the attention decode runs), 5e-2
+    of the largest logit, row by row; prefill and decode seconds, decode
+    tokens/s and peak device memory for each wave (and, apart, the
+    checks' peak)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import (Request, Scheduler, ServeConfig,
+                                          ServeSession)
+    cfg = registry.get_config("seamless-m4t-medium", attn_impl="flash")
+    check((cfg.encoder_layers, cfg.num_layers, cfg.d_model, cfg.num_heads,
+           cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == (12, 12, 1024, 16, 16, 64, 4096, 256206),
+          f"not the published width: {cfg}")
+    wave_a, wave_b = _serve_prompts(cfg.vocab_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw_params(cfg)
+    for m in (params["enc_blocks"]["attn"], params["dec_blocks"]["self_attn"],
+              params["dec_blocks"]["cross_attn"]):
+        _unit_scale(m)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    session = ServeSession(cfg, params, ServeConfig(**SERVE))
+    del params
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "model": cfg.name, "step": "load",
+          "params": n_params, "param_bytes_f32": 4 * n_params,
+          "seconds": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    session.run_wave([Request(100 + i, r.prompt[:128], 2)
+                      for i, r in enumerate(wave_a)])
+
+    fk.reset_launch_count()                   # the serve path starts here
+    done, peaks = [], {}
+    for name, wave in (("A", wave_a), ("B", wave_b)):
+        torch.cuda.reset_peak_memory_stats()
+        sched = Scheduler(session)
+        for r in wave:
+            sched.submit(r)
+        done += sched.run()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    launches = fk.launches                    # ... and ends here
+    routes = _route_counts()
+    n = SERVE["max_batch"]
+    last_logits = session.last_logits
+    torch.cuda.reset_peak_memory_stats()
+    plain = ServeSession(dataclasses.replace(cfg, attn_impl="reference"),
+                         session.params, session.scfg)
+    plain.last_logits = last_logits
+    rel_decode = _rel_rows(*_decode_and_forward(plain, wave_b, done[n:]))
+    del plain
+    torch.cuda.empty_cache()
+    rel_prefill = _flash_vs_plain_rows(session, _padded(wave_a))
+    torch.cuda.synchronize()
+    stats = {}
+    for name, comps, wave in (("A", done[:n], wave_a),
+                              ("B", done[n:], wave_b)):
+        c = comps[0]
+        steps = SERVE["max_new_tokens"] - 1
+        plen = int(_padded(wave).shape[1])
+        stats[name] = {"prompt_len": plen,
+                       "frames": max(1, plen // cfg.src_ratio),
+                       "max_memory_allocated": peaks[name],
+                       "prefill_s": c.prefill_seconds,
+                       "decode_s": c.decode_seconds, "decode_steps": steps,
+                       "decode_tokens_per_s": n * steps / c.decode_seconds,
+                       "prefill_tokens_per_s": n * plen / c.prefill_seconds}
+    emit({"phase": "serve", "model": cfg.name,
+          "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "serve_config": SERVE, "waves": stats,
+          "flash_launches": launches, "flash_launches_by_route": routes,
+          "flash_prefills": 2,
+          "prefill_flash_vs_plain_rel_by_row": rel_prefill,
+          "decode_vs_forward_rel_by_row": rel_decode,
+          "checks_max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(launches == cfg.num_layers * 2,
+          f"flash launches {launches} != 12 x 2 prefills")
+    check(routes[fk.TENSOR_CORE] == launches,
+          f"flash launches off the tensor-core route: {routes}")
+    check(max(rel_prefill) <= LOGIT_TOL,
+          f"{cfg.name}: flash prefill vs plain {rel_prefill}")
+    check(max(rel_decode) <= LOGIT_TOL,
+          f"{cfg.name}: decode vs forward {rel_decode}")
+    check(bool(torch.isfinite(last_logits).all()), "non-finite logits")
+    check(all(c.tokens.shape == (SERVE["max_new_tokens"],) for c in done),
+          "completions: wrong token counts")
+    emit({"phase": "serve", "model": cfg.name, "checks": "passed"})
+    return {"launches": launches,
+            "prefill_s": {k: v["prefill_s"] for k, v in stats.items()}}
 
 
 # -- 9. serving RWKV6-7B and Jamba at full width ------------------------------------
@@ -1995,7 +2389,8 @@ def _sm90_machine_code() -> dict:
 
 def flash_kernel_rows(launches: int, err: dict) -> list:
     """flash_attention's tensor-core route (the main path's) at the serve
-    shape and at Jamba's (8, 1,024, 32/8, 128), causal bf16, two input sets
+    shape, at Jamba's (8, 1,024, 32/8, 128) and at seamless-m4t-medium's
+    decoder's (8, 1,024, 16/16, 64), causal bf16, two input sets
     rotating past the L2: the kernel and scaled_dot_product_attention, each
     held against the plain version at that shape first (the library call is
     timed only, the port never calls it), and the plain version; the
@@ -2007,7 +2402,7 @@ def flash_kernel_rows(launches: int, err: dict) -> list:
     b, s, hq, hkv, dh = SERVE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
-    def draw(heads, kv_heads, dt):
+    def draw(heads, kv_heads, dh, dt):
         return [[torch.randn(shape, generator=gen, device="cuda").to(dt)
                  for shape in ((b, s, heads, dh), (b, s, kv_heads, dh),
                                (b, s, kv_heads, dh))] for _ in range(2)]
@@ -2017,10 +2412,11 @@ def flash_kernel_rows(launches: int, err: dict) -> list:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    shapes = {"qwen2": (hq, hkv), "jamba": (32, 8)}
+    shapes = {"qwen2": (hq, hkv, dh), "jamba": (32, 8, dh),
+              "seamless": SEAMLESS_SHAPE[2:]}
     times = {}
-    for name, (heads, kv_heads) in shapes.items():
-        bf16 = draw(heads, kv_heads, torch.bfloat16)
+    for name, (heads, kv_heads, dh) in shapes.items():
+        bf16 = draw(heads, kv_heads, dh, torch.bfloat16)
         check(fk.route(torch.bfloat16, dh) == fk.TENSOR_CORE,
               "the serve shape's bf16 does not route to the tensor cores")
         want = ref.gqa_attention(*bf16[0], causal=True).float()
@@ -2043,7 +2439,7 @@ def flash_kernel_rows(launches: int, err: dict) -> list:
             **_flash_bound(b, s, heads, kv_heads, dh)}
         del want, got
         if name == "qwen2":
-            f32 = draw(heads, kv_heads, torch.float32)
+            f32 = draw(heads, kv_heads, dh, torch.float32)
             check(fk.route(torch.float32, dh) == fk.CUDA_CORE,
                   "f32 does not route to the CUDA cores")
             times[name]["ms_f32"] = _graph_ms(
@@ -2063,6 +2459,7 @@ def flash_kernel_rows(launches: int, err: dict) -> list:
              "library": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
              "dtype": "bfloat16", "jamba": times["jamba"],
+             "seamless": times["seamless"],
              **_sm90_machine_code()}]
 
 
@@ -2306,10 +2703,18 @@ def main() -> int:
     stream_kernels = stream_device_kernels()
     del join, bds
     torch.cuda.empty_cache()
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="durable_feed_",
+                                     dir=root) as tmp:
+        durable = durable_feed(pathlib.Path(tmp))
+    torch.cuda.empty_cache()
 
     flash_err = flash_parity()
     scan_err = scan_parity()
     serve = serve_phase()                     # resets and reads its counts
+    torch.cuda.empty_cache()
+    seamless = serve_seamless_phase()         # resets and reads its counts
     torch.cuda.empty_cache()
     # each family phase resets the model kernels' counts before its serve
     # path and reads them after it
@@ -2325,12 +2730,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows = quant_kernel_rows(launches, err)
-    rows += stream_kernel_rows(stream_launches, stream_err, stream_kernels)
-    rows += flash_kernel_rows(serve["launches"] + jamba["flash_attention"],
-                              flash_err)
+    rows += stream_kernel_rows(
+        {**stream_launches, "window_minmax": stream_launches["window_minmax"]
+         + durable["window_minmax"]}, stream_err, stream_kernels)
+    rows[-2]["launches_by_path"] = {
+        "stream": stream_launches["window_minmax"],
+        "durable_feed": durable["window_minmax"],
+        "durable_feed_after_recovery": durable["after_recovery"]}
+    rows += flash_kernel_rows(serve["launches"] + jamba["flash_attention"]
+                              + seamless["launches"], flash_err)
     rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],
-                                    "serve_jamba": jamba["flash_attention"]}
+                                    "serve_jamba": jamba["flash_attention"],
+                                    "serve_seamless": seamless["launches"]}
     rows[-1]["qwen2_prefill_s"] = serve["prefill_s"]
+    rows[-1]["seamless_prefill_s"] = seamless["prefill_s"]
     rows += scan_kernel_rows(
         {**{k: v for k, v in rwkv.items() if k.startswith("rwkv6_scan")},
          **{k: v for k, v in jamba.items() if k.startswith("mamba_scan")}},

@@ -15,21 +15,32 @@ TreeDef = Any
 
 
 def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
-    leaves: List[Any] = []
-    return leaves, _flatten(tree, leaves)
+    pairs, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in pairs], treedef
 
 
-def _flatten(tree: Any, leaves: List[Any]) -> TreeDef:
+def tree_flatten_with_path(tree: Any
+                           ) -> Tuple[List[Tuple[Tuple[Any, ...], Any]],
+                                      TreeDef]:
+    """(path, leaf) pairs in tree order, a path being the dict keys and
+    list or tuple indices down to its leaf
+    (``jax.tree_util.tree_flatten_with_path``), and the treedef."""
+    pairs: List[Tuple[Tuple[Any, ...], Any]] = []
+    return pairs, _flatten(tree, (), pairs)
+
+
+def _flatten(tree: Any, path: Tuple[Any, ...], pairs: list) -> TreeDef:
     if tree is None:
         return ("none",)
     if isinstance(tree, dict):
         keys = sorted(tree)
         return ("dict", tuple(keys),
-                tuple(_flatten(tree[k], leaves) for k in keys))
+                tuple(_flatten(tree[k], path + (k,), pairs) for k in keys))
     if isinstance(tree, (list, tuple)):
         return (type(tree).__name__, len(tree),
-                tuple(_flatten(x, leaves) for x in tree))
-    leaves.append(tree)
+                tuple(_flatten(x, path + (i,), pairs)
+                      for i, x in enumerate(tree)))
+    pairs.append((path, tree))
     return None
 
 

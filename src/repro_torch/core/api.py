@@ -8,11 +8,14 @@ deployment, mirroring the docker-compose topology of the v0.1 release
 Every deployment names its ``device``: the engines keep their tensors
 there, the streams materialize their window views there, and the quant
 cast and the compiled streaming path run their CUDA kernels there, and
-the ml island runs its models there.  Durable streams are not ported yet
-(ROADMAP.md "Durability slice").
+the ml island runs its models there.  A durable stream
+(``register_stream(..., durability=...)``, ``recover_stream``) keeps its
+segment log and checkpoints on the host, in its directory.
 """
 from __future__ import annotations
 
+import json
+import os
 import warnings
 from typing import Dict, Optional
 
@@ -25,9 +28,6 @@ from repro_torch.core.migrator import Migrator
 from repro_torch.core.monitor import Monitor, MonitoringTask
 from repro_torch.core.planner import Planner, PlannerConfig, Response
 from repro_torch.stream.continuous import ContinuousQuery, StreamRuntime
-
-_DURABILITY_SLICE = ("durable streams are not ported yet: ROADMAP.md "
-                     "\"Durability slice\"")
 
 
 class BigDawg:
@@ -142,9 +142,7 @@ class BigDawg:
 
         Legacy form — ``register_stream(engine, name, fields,
         **kwargs)`` — still works: it folds the kwargs into the
-        identical spec but emits a ``DeprecationWarning``.  A spec with
-        ``Durability`` raises ``NotImplementedError``: durable streams
-        come with the durability slice.
+        identical spec but emits a ``DeprecationWarning``.
         """
         from repro_torch.stream.spec import StreamSpec
         if isinstance(name, StreamSpec):
@@ -175,8 +173,6 @@ class BigDawg:
         """The one registration path (both API forms land here)."""
         from repro_torch.stream.engine import (SEQ_FIELD, ShardedStream,
                                                Stream, StreamEngine)
-        if spec.durability is not None:
-            raise NotImplementedError(_DURABILITY_SLICE)
         if not isinstance(self.engines[engine_name], StreamEngine):
             raise TypeError(f"{engine_name} is not a StreamEngine")
         name, fields = spec.name, spec.fields
@@ -227,7 +223,9 @@ class BigDawg:
         return handle
 
     def _stream_extras(self, engine_name: str, stream, spec) -> None:
-        """Shared tail of registration: the dead-letter sink."""
+        """Shared tail of register_stream/recover_stream: dead-letter
+        sink registration and the durability attach (sink first — the
+        durability meta must record it)."""
         from repro_torch.stream.engine import Stream
         dead_letter = (spec.event_time is not None
                        and spec.event_time.dead_letter)
@@ -238,11 +236,70 @@ class BigDawg:
             self.register_object(engine_name, stream._late_sink.name,
                                  stream._late_sink,
                                  fields=tuple(stream.fields))
+        if spec.durability is not None:
+            from repro_torch.stream.durability import attach
+            attach(stream, spec.durability.directory,
+                   checkpoint_every_rows=spec.durability
+                   .checkpoint_every_rows,
+                   keep=spec.durability.keep)
+            self.streams.register_durable(stream)
 
     def recover_stream(self, engine_name: str, directory: str):
-        """Rebuild a durable stream from its on-disk directory: comes
-        with the durability slice."""
-        raise NotImplementedError(_DURABILITY_SLICE)
+        """Rebuild a durable stream from its on-disk directory (latest
+        checkpoint + log-tail replay, repairing any torn tail), register
+        it — shard rings on their original engines, the handle on every
+        participating engine, the dead-letter sink if any — and
+        re-attach durability so ingest continues into the same log.
+        Returns the recovered stream with its registration spec
+        round-tripped from the manifest (``stream.spec``); the stream is
+        bit-identical to the crashed one's durable prefix.  Each package
+        recovers a directory the other wrote."""
+        from repro_torch.stream.durability import attach, recover
+        from repro_torch.stream.spec import StreamSpec
+        result = recover(directory)
+        stream = result.stream
+        if hasattr(stream, "shard_engines"):      # ShardedStream
+            engines = stream.shard_engines()
+            pool = [int(e[len("streamstore"):]) + 1 for e in engines
+                    if e.startswith("streamstore")
+                    and e[len("streamstore"):].isdigit()]
+            if pool:
+                self.ensure_stream_engines(max(pool))
+            for ename, shard in zip(engines, stream._shards):
+                self.register_object(ename, shard.name, shard,
+                                     fields=shard.fields)
+            participating = sorted(set(engines) | {engine_name})
+            self.register_object(participating[0], stream.name, stream,
+                                 fields=tuple(stream.fields))
+            for ename in participating[1:]:
+                self.engines[ename].put(stream.name, stream)
+        else:
+            self.register_object(engine_name, stream.name, stream,
+                                 fields=tuple(stream.fields))
+        if result.late_sink is not None:
+            self.register_object(engine_name, result.late_sink.name,
+                                 result.late_sink,
+                                 fields=tuple(stream.fields))
+        with open(os.path.join(directory, "meta.json")) as f:
+            manifest = json.load(f)
+        spec = StreamSpec.from_manifest(manifest, directory)
+        stream.spec = spec
+        durable = attach(stream, directory,
+                         checkpoint_every_rows=spec.durability
+                         .checkpoint_every_rows,
+                         keep=spec.durability.keep)
+        durable.recovered += 1
+        durable.last_recovery = {
+            "checkpoint_step": result.checkpoint_step,
+            "records_replayed": result.records_replayed,
+            "rows_replayed": result.rows_replayed,
+            "seconds": result.seconds,
+            "truncated_records": result.truncated_records}
+        self.streams.register_durable(stream)
+        self.monitor.observe_recovery(stream.name, result.rows_replayed,
+                                      result.seconds)
+        self.monitor.observe_durability(stream.name, durable.stats())
+        return stream
 
     def rebalance_stream(self, stream: str, shard: Optional[int] = None,
                          to_engine: Optional[str] = None):
@@ -295,8 +352,9 @@ class BigDawg:
         Planner's signature extractor sees it as a referenced object and
         pins infer reads to the model's home engine.  Params are drawn
         from a fixed seed at first use and cached per (arch, seed,
-        device).  Only the dense family runs in this port so far: the
-        others raise ``NotImplementedError`` when first scored."""
+        device).  An encoder-decoder arch (seamless-m4t-medium) needs
+        frame embeddings that ``infer`` does not supply, so scoring it
+        fails on the missing ``frame_embeds``, as in the reference."""
         from repro_torch.stream.ml import MLModel, resolve_arch
         self.ensure_ml_engines(
             max(1, int(engine_name[len("mlhost"):]) + 1)

@@ -18,7 +18,9 @@ Routes:
            so a shard can be rebalanced under a running standing query
            without losing continuity.  ``MigrationParams(copy=True)``
            instead builds a detached, renamed **read replica** and leaves
-           the source live.
+           the source live; a durable source's replica carries the
+           segment-log positions captured at the copy instant, so
+           ``durability.catch_up`` can replay it forward incrementally.
 
 ``reshard`` is the binary route between devices: ``tensor.to(device)``.
 """
@@ -185,7 +187,18 @@ class Migrator:
                 f"stream cast cannot {'copy' if copy else 'move'} "
                 f"{object_from!r} onto itself on {engine_from.name}")
         if copy:
-            engine_to.put(object_to, obj.clone(object_to))
+            durable = getattr(obj, "_durable", None)
+            if durable is not None:
+                # capture (state, per-lane log positions) at one
+                # coherent instant so durability.catch_up can replay
+                # the replica forward from exactly where the copy ends
+                state, lsns = obj._checkpoint_snapshot(
+                    durable.lane_lsns)
+                replica = obj.clone(object_to, state=state)
+                replica._replica_lsns = lsns
+            else:
+                replica = obj.clone(object_to)
+            engine_to.put(object_to, replica)
             return
         state = obj.export_state()
         engine_to.put(object_to, Stream.from_state(state))

@@ -70,6 +70,11 @@ class Monitor:
         # (backend, compiles, cache hits, fallbacks + reasons), one
         # process-wide dict
         self.jit_stats: Dict[str, Any] = {}
+        # per-stream durability health: segment-log/checkpoint counters
+        # (StreamRuntime.tick feeds this from StreamDurability.stats())
+        # and the last recover_stream outcome
+        self.durability_stats: Dict[str, Dict[str, Any]] = {}
+        self.recoveries: Dict[str, Dict[str, Any]] = {}
         # ml-island inference health: the repro_torch.stream.ml.stats()
         # block (models loaded, waves, windows scored, params-cache hits),
         # process-wide like the jit stats
@@ -293,6 +298,28 @@ class Monitor:
         with self._lock:
             self.ml_stats = dict(stats)
 
+    def observe_durability(self, stream_name: str,
+                           stats: Dict[str, Any]) -> None:
+        """Record a durable stream's segment-log/checkpoint counters
+        (the ``StreamDurability.stats()`` block).  StreamRuntime.tick
+        feeds this."""
+        with self._lock:
+            self.durability_stats[stream_name] = dict(stats)
+        metrics.gauge("repro_stream_log_bytes",
+                      "segment-log bytes on disk",
+                      stream=stream_name).set(stats.get("log_bytes", 0))
+        metrics.gauge("repro_stream_log_segments",
+                      "segment files in the wal",
+                      stream=stream_name).set(stats.get("segments", 0))
+
+    def observe_recovery(self, stream_name: str, rows: int,
+                         seconds: float) -> None:
+        """Record a recover_stream outcome (rows replayed from the
+        segment log and the wall-clock rebuild time)."""
+        with self._lock:
+            self.recoveries[stream_name] = {
+                "rows_replayed": int(rows), "seconds": float(seconds)}
+
     @staticmethod
     def shard_load(stats: Dict[str, float]) -> float:
         """One shard's *lifetime* ingest load: appended rows, weighted up
@@ -400,7 +427,7 @@ class Monitor:
         Monitor lock.  The one sanctioned way to *read* this state from
         another thread while the background MonitoringTask and the
         Executor keep mutating the live dicts (iterating those directly
-        races).  The durability observers come with their slice."""
+        races)."""
         with self._lock:
             return {
                 "engine_ewma": dict(self.engine_ewma),
@@ -415,6 +442,11 @@ class Monitor:
                                  for k, v in self.ingest_stats.items()},
                 "jit_stats": dict(self.jit_stats),
                 "ml_stats": dict(self.ml_stats),
+                "durability_stats": {
+                    k: dict(v)
+                    for k, v in self.durability_stats.items()},
+                "recoveries": {k: dict(v)
+                               for k, v in self.recoveries.items()},
                 "shard_stats": {
                     name: {i: dict(st) for i, st in shards.items()}
                     for name, shards in self.shard_stats.items()},

@@ -1,3 +1,3 @@
 """The model stack of the port: configs, layers, attention, the decoder
-LM and the registry (the dense family; the other families come with
-their slices, ROADMAP.md)."""
+LM of every decoder-only family, the encoder-decoder (``encdec``) and the
+registry."""

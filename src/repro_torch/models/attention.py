@@ -6,8 +6,9 @@ Departure from the reference, whose arrays are immutable: ``write_kv``
 and ``decode_attention`` write the new k/v **in place** into the cache
 tensors they are given (and return a dict holding those same tensors),
 which saves a copy of the whole cache at every step.  A caller that
-needs the old cache keeps a clone.  ``cross_attention`` comes with the
-encoder-decoder slice (ROADMAP.md).
+needs the old cache keeps a clone.  Only causal self-attention goes to
+the flash kernel, as in the reference: the encoder's full self-attention
+and the decoder's ``cross_attention`` take the plain path.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from repro_torch.sharding.logical import ParamSpec
 NEG_INF = -1e30
 
 
-def attn_specs(cfg: ModelConfig) -> dict:
+def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """The projections' specs; ``cross`` (the decoder's attention over
+    the encoder memory) takes the same ones."""
     d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
         "wq": ParamSpec((d, hq, dh), (L.EMBED, L.HEADS, L.HEAD_DIM)),
@@ -125,6 +128,16 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         mask = causal_mask(s, s, device=x.device) if causal else None
         out = gqa_attend(q, k, v, mask)
     return _out_proj(out, params["wo"])
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder->encoder attention (enc-dec archs): q from ``x``, k and v
+    from the encoder ``memory``; no mask, no rope, no bias."""
+    q = _project(x, params["wq"])
+    k = _project(memory, params["wk"])
+    v = _project(memory, params["wv"])
+    return _out_proj(gqa_attend(q, k, v, None), params["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ COMPUTE_DTYPE = torch.bfloat16          # activations; params stay f32
 # reads another leaf in float32 names it here.
 FLOAT32_LEAVES = frozenset({
     "ln1", "ln2", "final_norm",                    # norm scales and biases
+    "ln_x", "enc_norm",                            # (enc-dec's own norms)
     "q_norm", "k_norm",                            # QK-norm (attention)
     "w0", "w_lora_a", "w_lora_b", "u",             # RWKV6 decay and bonus
     "ln_scale", "ln_bias",                         # RWKV6 group norm

@@ -3,14 +3,16 @@ ids to configs and provides the uniform batch-dict model API of the
 serve path and the ml island.
 
 Batch dicts:
-  forward: {tokens (B,S_text) int32 [, prefix_embeds (B,P,D) f32]}
-  prefill: {tokens (B,S)} (+ prefix_embeds) + cache tree
+  forward: {tokens (B,S_text) int32 [, prefix_embeds (B,P,D) f32]
+            [, frame_embeds (B,S_src,D) f32]}
+  prefill: {tokens (B,S)} (+ prefix_embeds / frame_embeds) + cache tree
   decode:  {tokens (B,1)} + cache tree + pos
+            (+ memory (B,S_src,D) for enc-dec)
 
-Every decoder-only arch of the pool runs (the dense, moe, ssm, hybrid and
-vlm families).  Encoder-decoder archs (seamless-m4t-medium) come with the
-encoder-decoder slice, and ``loss_fn``/``make_train_batch`` with the
-training slice (ROADMAP.md).
+Every arch of the pool runs: the decoder-only families (dense, moe, ssm,
+hybrid, vlm) through ``lm`` and the encoder-decoder one
+(seamless-m4t-medium) through ``encdec``.  ``loss_fn`` and
+``make_train_batch`` come with the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = {
@@ -52,38 +54,38 @@ def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.encoder_layers > 0
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    if is_encdec(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder archs are not ported yet "
-            f"(ROADMAP.md §1, the encoder-decoder slice)")
-
-
 def param_specs(cfg: ModelConfig):
-    _decoder_only(cfg)
-    return lm.param_specs(cfg)
+    return encdec.param_specs(cfg) if is_encdec(cfg) else lm.param_specs(cfg)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        return encdec.cache_specs(cfg, batch, cache_len)
     return lm.cache_specs(cfg, batch, cache_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        return encdec.init_cache(cfg, batch, cache_len, device)
     return lm.init_cache(cfg, batch, cache_len, device)
 
 
 def forward(params, batch: Dict[str, Any], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        return encdec.forward(params, batch["tokens"],
+                              batch["frame_embeds"], cfg)
     return lm.forward(params, batch["tokens"], cfg,
                       prefix_embeds=batch.get("prefix_embeds"))
 
 
 def prefill(params, batch: Dict[str, Any], cache, cfg: ModelConfig):
-    """Returns (last-token logits, cache, extras-dict)."""
-    _decoder_only(cfg)
+    """Returns (last-token logits, cache, extras-dict); an enc-dec arch's
+    extras hold the encoder ``memory`` that every decode step reads."""
+    if is_encdec(cfg):
+        logits, cache, memory = encdec.prefill(
+            params, batch["tokens"], batch["frame_embeds"], cache, cfg)
+        return logits, cache, {"memory": memory}
     logits, new_cache = lm.prefill(params, batch["tokens"], cache, cfg,
                                    prefix_embeds=batch.get("prefix_embeds"))
     return logits, new_cache, {}
@@ -91,6 +93,7 @@ def prefill(params, batch: Dict[str, Any], cache, cfg: ModelConfig):
 
 def decode_step(params, batch: Dict[str, Any], cache, pos: int,
                 cfg: ModelConfig):
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        return encdec.decode_step(params, batch["tokens"], batch["memory"],
+                                  cache, pos, cfg)
     return lm.decode_step(params, batch["tokens"], cache, pos, cfg)
-

@@ -91,6 +91,24 @@ class ServeSession:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def frontend_batch(self, prompts: np.ndarray) -> Dict[str, Any]:
+        """The model's batch for left-padded ``prompts`` (B, P): their
+        tokens and the stub frontend's inputs, zero prefix embeddings
+        for a vision arch and for an audio one zero frame embeddings,
+        one frame per ``src_ratio`` prompt positions."""
+        b, plen = prompts.shape
+        batch: Dict[str, Any] = {
+            "tokens": torch.from_numpy(prompts).to(self.device)}
+        if self.cfg.frontend == "vision":
+            batch["prefix_embeds"] = torch.zeros(
+                (b, self.cfg.num_prefix_embeds, self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        if self.cfg.frontend == "audio":
+            batch["frame_embeds"] = torch.zeros(
+                (b, max(1, plen // self.cfg.src_ratio), self.cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        return batch
+
     def prefill(self, prompts: np.ndarray):
         """Prefill a fresh cache with left-padded ``prompts`` (B, P).
         Returns (last-token logits, cache, extras, first decode
@@ -98,21 +116,17 @@ class ServeSession:
         b, plen = prompts.shape
         cache = registry.init_cache(self.cfg, b, self.scfg.cache_len,
                                     self.device)
-        batch: Dict[str, Any] = {
-            "tokens": torch.from_numpy(prompts).to(self.device)}
-        if self.cfg.frontend == "vision":
-            batch["prefix_embeds"] = torch.zeros(
-                (b, self.cfg.num_prefix_embeds, self.cfg.d_model),
-                dtype=torch.float32, device=self.device)
-        logits, cache, extras = registry.prefill(self.params, batch, cache,
-                                                 self.cfg)
+        logits, cache, extras = registry.prefill(
+            self.params, self.frontend_batch(prompts), cache, self.cfg)
         pos0 = plen + (self.cfg.num_prefix_embeds
                        if self.cfg.frontend == "vision" else 0)
         return logits, cache, extras, pos0
 
     def decode(self, tokens: np.ndarray, cache, pos: int, extras):
         """One greedy step: ``tokens`` (B,) at position ``pos``; the cache
-        is written in place.  Returns (logits, cache)."""
+        is written in place, and ``extras`` (prefill's, e.g. an enc-dec
+        arch's encoder memory) go with the tokens.  Returns (logits,
+        cache)."""
         tok = torch.from_numpy(tokens.astype(np.int32)[:, None]).to(
             self.device)
         return registry.decode_step(self.params, {"tokens": tok, **extras},

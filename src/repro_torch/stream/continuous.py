@@ -13,10 +13,9 @@ Per-tick metrics — execution latency, plan-cache hit, rows dropped by
 ring-buffer backpressure since the previous execution, and whether the
 query fell behind the arrival cadence — are kept per query and fed to the
 Monitor (``observe_stream``), surfacing in ``StreamRuntime.status()``.
-
-The durability cadence of the reference's tick comes with its slice
-(ROADMAP.md "Durability slice"), and the tick listeners with the serving
-front door that reads them.
+Each tick also drives the checkpoint cadence of the durable streams
+(``register_durable``).  The tick listeners come with the serving front
+door that reads them (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -128,6 +127,14 @@ class StreamRuntime:
         self.last_driver_error: Optional[str] = None
         # live shard rebalances performed through rebalance()
         self.rebalances: List[Dict[str, Any]] = []
+        # durable streams (register_stream(durability=...) /
+        # recover_stream): tick drives their checkpoint cadence and
+        # feeds their log/checkpoint stats to the Monitor
+        self._durable_streams: List[Any] = []
+
+    def register_durable(self, stream) -> None:
+        if stream not in self._durable_streams:
+            self._durable_streams.append(stream)
 
     # -- registration ---------------------------------------------------------
     def register_continuous(self, query: str, every_n_ticks: int = 1,
@@ -366,6 +373,17 @@ class StreamRuntime:
                     "repro_stream_eviction_ts",
                     "event-time eviction horizon (windows at or below "
                     "this ts are gone)", stream=name).set(ev)
+        # durability cadence: checkpoint any durable stream that has
+        # logged checkpoint_every_rows rows since its last checkpoint
+        # (async save — the tick thread never blocks on .npy I/O), and
+        # mirror log/checkpoint stats into the Monitor
+        for stream in self._durable_streams:
+            durable = stream._durable
+            if durable is None:
+                continue
+            durable.maybe_checkpoint()
+            self.monitor.observe_durability(stream.name,
+                                            durable.stats())
         # compiled-query-path counters (backend, compiles, cache hits,
         # fallbacks) — one global block, refreshed every tick so the
         # Monitor's view tracks the jit lane's health live

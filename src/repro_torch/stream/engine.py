@@ -546,14 +546,15 @@ class Stream(_MultiProducerIngest):
         self.idle_timeout = idle_timeout
         self._last_arrival: Optional[float] = None
         self._now = time.monotonic        # injectable for tests
-        # -- the write-behind segment-log hook (the durability slice
-        # attaches it; always None in the port so far) and the late-row
-        # dead-letter sink.  Both None by default — the hot path pays
-        # one attribute check per batch and nothing else.
+        # -- durability (opt-in, see repro_torch.stream.durability): the
+        # write-behind segment-log hook and the late-row dead-letter
+        # sink.  Both None by default — the hot path pays one attribute
+        # check per batch and nothing else.
         self._durable = None
         self._late_sink: Optional["Stream"] = None
         # registration spec (repro_torch.stream.spec.StreamSpec), set by
-        # BigDawg._register_spec; None when the stream was built directly
+        # BigDawg._register_spec / recover_stream; None when the stream
+        # was built directly
         self.spec = None
         # where window views materialize (StreamEngine.put sets it)
         self.device = torch.device("cpu")
@@ -1087,12 +1088,38 @@ class Stream(_MultiProducerIngest):
         what the Migrator's stream-route *copy* mode (read replicas)
         builds on.  The clone shares nothing with this stream: no
         committer, no durability hook, no late sink.  Pass ``state``
-        (an ``export_state`` dict captured earlier) to clone that
-        instant instead of now."""
+        (an ``export_state`` dict captured earlier, e.g. inside
+        ``_checkpoint_snapshot``) to clone that instant instead of
+        now."""
         state = dict(self.export_state() if state is None else state)
         if name is not None:
             state["name"] = name
         return Stream.from_state(state)
+
+    # -- durability checkpoint hook -------------------------------------------
+    def _checkpoint_snapshot(self, capture):
+        """Export the full state at an instant where the ring and the
+        write-behind segment log agree, running ``capture()`` (the
+        durability layer reads its per-lane log positions) at that same
+        instant.  Returns (state dict, capture()'s result).
+
+        Event-time streams ingest and log under ``self._lock``, so the
+        lock alone is the coherence point.  Seq-ordered streams log
+        inside the committer's ordered section *after* the ring write:
+        freezing reservations (micro-lock) and draining the lane
+        (``pause``) leaves ring and log equal; in-flight reservations
+        at the freeze are drained, not lost."""
+        if self.ts_field is not None:
+            with self._lock:
+                return self._export_locked(), capture()
+        with self._reserve_lock:
+            self._committer.pause()
+            try:
+                with self._lock:
+                    state = self._export_locked()
+                return state, capture()
+            finally:
+                self._committer.resume()
 
     # -- island data-model plumbing ------------------------------------------
     @property
@@ -1237,12 +1264,13 @@ class ShardedStream(_MultiProducerIngest):
         self.migrations = 0               # live shard moves (rebalances)
         self._pool: Optional[ThreadPoolExecutor] = None
         self._lock = threading.RLock()
-        # -- durability hooks (the durability slice attaches them; None
-        # until then) — the hot path pays one attribute check per batch
+        # -- durability hooks (see repro_torch.stream.durability): None
+        # until attached — the hot path pays one attribute check per batch
         self._durable = None
         self._late_sink: Optional[Stream] = None
         # registration spec (repro_torch.stream.spec.StreamSpec), set by
-        # BigDawg._register_spec; None when the handle was built directly
+        # BigDawg._register_spec / recover_stream; None when the handle
+        # was built directly
         self.spec = None
         # where window views materialize (StreamEngine.put sets it)
         self.device = torch.device("cpu")

@@ -35,8 +35,7 @@ standing ``infer`` queries that run within one StreamRuntime tick join a
 single wave.  ``StreamRuntime.tick`` mirrors ``stats()`` into
 ``Monitor.observe_ml``.  Errors about not-yet-complete windows propagate
 as ``StreamException`` (transient: standing queries and cached plans
-survive them).  The reference's durable-replay case waits for the
-durability slice (ROADMAP.md).
+survive them).
 """
 from __future__ import annotations
 

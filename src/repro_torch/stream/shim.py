@@ -52,8 +52,7 @@ rolling fast path — per-shard partial aggregates combined, memoized per
 window index — instead of materializing the window each tick.
 
 Results are canonical (32-bit) tensors on the engine's device, as the
-reference's ``asarray`` gives them.  ``replay`` belongs to the
-durability slice and raises ``NotImplementedError`` here.
+reference's ``asarray`` gives them.
 """
 from __future__ import annotations
 
@@ -345,9 +344,14 @@ def execute_stream(engine: Engine, query: str):
         return dm.Table({k: col([float(v)])
                          for k, v in stream.ingest_concurrency().items()})
     if fn == "replay":
-        raise NotImplementedError(
-            "replay reads a durable stream's segment log, which the port "
-            "does not have yet: ROADMAP.md \"Durability slice\"")
+        # rebuild the durable stream from its segment log into a
+        # detached clone (read-only — the live log is untouched), timing
+        # the tail replay: the log as a deterministic load generator.
+        # identical=1.0 iff the clone matches the live stream bit-wise.
+        from repro_torch.stream.durability import replay_clone
+        stream = _get_stream(engine, args[0])
+        return dm.Table({k: col([float(v)])
+                         for k, v in replay_clone(stream).items()})
     if fn == "aggregate":
         if len(args) != 2:
             raise ValueError(f"aggregate needs (expr, fn(attr)): {q!r}")

@@ -15,10 +15,9 @@ orthogonal sub-configs — :class:`Sharding`, :class:`EventTime`,
 The legacy kwargs form survives as a thin shim that builds the same
 spec (and emits ``DeprecationWarning``).  Specs are frozen and
 hashable, and round-trip through the durability manifest form
-(``manifest_extras`` / ``from_manifest``).  A spec may carry a
-:class:`Durability`, but the port does not register durable streams
-yet: ``BigDawg.register_stream`` raises ``NotImplementedError`` for one
-(ROADMAP.md "Durability slice").
+(``manifest_extras`` / ``from_manifest``): ``BigDawg.recover_stream``
+rebuilds the spec a durable stream was registered with from its
+directory's ``meta.json``.
 """
 from __future__ import annotations
 

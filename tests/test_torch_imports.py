@@ -43,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
                                          "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     count, loaded = proc.stdout.split(" ", 1)
-    assert int(count) >= 37
+    assert int(count) >= 43
     assert loaded.strip() == "[]"
 
 
@@ -66,10 +66,20 @@ ML_MODULES = ["repro_torch.models.config", "repro_torch.models.layers",
               "repro_torch.kernels.flash_attention.flash_attention"]
 
 
-@pytest.mark.parametrize("module", STREAM_MODULES + ML_MODULES)
+# the encoder-decoder family and the crash-safe streams
+DURABLE_MODULES = ["repro_torch.models.encdec",
+                   "repro_torch.configs.seamless_m4t_medium",
+                   "repro_torch.runtime.fault",
+                   "repro_torch.checkpoint.manager",
+                   "repro_torch.stream.durability"]
+
+
+@pytest.mark.parametrize("module",
+                         STREAM_MODULES + ML_MODULES + DURABLE_MODULES)
 def test_streaming_modules_load_no_jax(module):
-    """Each module of the streaming and ML slices, imported alone in a
-    fresh interpreter, loads neither jax nor the reference package."""
+    """Each module of the streaming, ML and durability slices, imported
+    alone in a fresh interpreter, loads neither jax nor the reference
+    package."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")

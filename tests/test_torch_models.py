@@ -43,7 +43,7 @@ from repro_torch.sharding import logical as L
 DENSE = ["qwen2-1.5b", "deepseek-coder-33b", "command-r-35b", "internvl2-2b"]
 # the recurrent, hybrid and MoE families (tests/test_torch_families.py)
 FAMILIES = ["rwkv6-7b", "jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-moe-16b"]
-UNPORTED = ["seamless-m4t-medium"]
+ENCDEC = ["seamless-m4t-medium"]        # (tests/test_torch_encdec.py)
 EAGER_TOL, COMPILED_TOL = 1e-2, 5e-2
 B, S, CACHE = 2, 12, 24
 
@@ -114,7 +114,8 @@ def test_configs_are_the_references(arch):
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
-@pytest.mark.parametrize("arch", DENSE + ["command-r-plus-104b"] + FAMILIES)
+@pytest.mark.parametrize("arch",
+                         DENSE + ["command-r-plus-104b"] + FAMILIES + ENCDEC)
 def test_spec_trees_match(arch, reduced):
     """Names, shapes, axes, dtypes and initializers of every parameter and
     cache leaf, at the reduced and the published widths."""
@@ -129,13 +130,6 @@ def test_spec_trees_match(arch, reduced):
         c = dataclasses.replace(cfg, kv_cache_dtype=codec)
         assert (_flat_specs(registry.cache_specs(c, 2, 16), False)
                 == _flat_specs(jreg.cache_specs(jc, 2, 16), True))
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = registry.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.param_specs(cfg)
 
 
 def test_full_width_qwen2_has_its_published_size():

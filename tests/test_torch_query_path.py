@@ -301,10 +301,11 @@ def test_tensorstore_int8_kv_pages(writer):
 
 
 def test_later_slices_raise_not_implemented(pair):
-    """The streaming island's durable streams (the shim's ``replay`` and
-    ``recover_stream``) come with a later slice; the ml island, ported
-    since, dispatches to its own shim (which takes ``infer`` on an
-    MLEngine only)."""
+    """The ml island dispatches to its own shim (which takes ``infer`` on
+    an MLEngine only).  The durable-stream entry points, ported since,
+    fail as the reference's do on what is not there: ``replay`` of an
+    unknown stream and ``recover_stream`` of a directory with no
+    ``meta.json``."""
     from repro_torch.core import shims
     from repro_torch.core.migrator import reshard
     from repro_torch.stream.ml import MLException
@@ -314,11 +315,14 @@ def test_later_slices_raise_not_implemented(pair):
     with pytest.raises(MLException, match="need an MLEngine"):
         shims.execute("ml", bd.engines["densehbm0"],
                       "infer(window(s, 4), models.lm)")
-    with pytest.raises(NotImplementedError, match="Durability slice"):
-        shims.execute("streaming", bd.engines["streamstore0"],
-                      "replay(any.stream)")
-    with pytest.raises(NotImplementedError, match="Durability slice"):
-        bd.recover_stream("streamstore0", "/nonexistent")
+    jbd, _ = pair
+    from repro.core import shims as jshims
+    for sh, dep in ((jshims, jbd), (shims, bd)):
+        with pytest.raises(KeyError, match="any.stream"):
+            sh.execute("streaming", dep.engines["streamstore0"],
+                       "replay(any.stream)")
+        with pytest.raises(FileNotFoundError, match="meta.json"):
+            dep.recover_stream("streamstore0", "/nonexistent")
     t = torch.arange(5, dtype=torch.int32)
     moved = reshard(t, "cpu")
     assert moved.device.type == "cpu" and torch.equal(moved, t)

@@ -12,6 +12,7 @@ Memo counters (``agg_cache_hits``) are not compared: the port's jit
 backend sends rolling min/max to the kernel, which skips the memo by
 design.
 """
+import os
 import threading
 import warnings
 
@@ -254,14 +255,24 @@ def test_spec_and_legacy_registration_build_the_same_stream():
 
 
 def test_durable_streams_wait_for_their_slice(tmp_path):
+    """Durable streams, ported since: both registration forms attach
+    durability (a segment log and a checkpoint manager in the stream's
+    directory) and enrol the stream in the tick's checkpoint cadence, as
+    the reference's do (``tests/test_torch_durability.py`` holds the
+    rest)."""
+    from repro_torch.stream import durability as dur
     bd = default_deployment(device="cpu")
-    spec = StreamSpec("d", ("v",), durability=Durability(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="Durability slice"):
-        bd.register_stream("streamstore0", spec)
-    with pytest.raises(NotImplementedError, match="Durability slice"):
-        bd.register_stream("streamstore0", "d", ("v",),
-                           durability=str(tmp_path))
-    assert not bd.engines["streamstore0"].has("d")
+    spec = StreamSpec("d", ("v",), durability=Durability(str(tmp_path / "a")))
+    a = bd.register_stream("streamstore0", spec)
+    b = bd.register_stream("streamstore0", "e", ("v",),
+                           durability=str(tmp_path / "b"))
+    for s in (a, b):
+        assert isinstance(s._durable, dur.StreamDurability)
+        assert s in bd.streams._durable_streams
+        s.append({"v": np.arange(3.0)})
+        assert s._durable.stats()["log_rows"] == 3
+    assert bd.engines["streamstore0"].has("d")
+    assert sorted(os.listdir(tmp_path / "a")) == ["ckpt", "meta.json", "wal"]
 
 
 _OPS = ["snapshot(o.s)", "o.s", "window(o.s, 8)", "window(o.s, 8, 4)",
@@ -291,8 +302,9 @@ def test_island_ops_through_the_endpoint_match_reference(backend,
     assert qc.stats()["fallbacks"] == 0
     rate = to_numpy(deps[1].query("bdstream(rate(o.s))").value)["columns"]
     assert list(rate) == ["rows_per_second", "rows", "appended", "dropped"]
-    with pytest.raises(Exception, match="Durability slice"):
-        deps[1].query("bdstream(replay(o.s))")
+    for dep in deps:
+        with pytest.raises(Exception, match="has no durability attached"):
+            dep.query("bdstream(replay(o.s))")
 
 
 def test_window_casts_into_the_array_and_relational_islands():

@@ -10,9 +10,9 @@ Against the reference the score is compared on the reference's params
 its jitted forward, whose bf16 intermediates XLA keeps in float32, so the
 mean NLL is held to 2e-3 relative (the logits differ by up to a few
 percent of the largest one, and the NLL averages those differences over
-the window's positions).  The reference's durable-replay case waits for
-the durability slice; the jax-absent fallback has no counterpart (the
-port needs no jax).
+the window's positions).  The reference's durable-replay case has its
+twin in ``tests/test_torch_durability.py``; the jax-absent fallback has
+no counterpart (the port needs no jax).
 """
 import jax
 import numpy as np
@@ -291,15 +291,32 @@ def test_unknown_model_and_bad_args():
         ml.execute_ml(bd.engines["mlhost0"], "predict(x, models.lm)")
 
 
-@pytest.mark.parametrize("alias,arch", [("audio", "seamless-m4t-medium")])
-def test_unported_families_raise(alias, arch):
+def test_audio_alias_fails_on_frame_embeds_as_the_reference():
+    """A model registered as ``audio`` on seamless-m4t-medium (the
+    encoder-decoder) builds and draws its params, but ``infer`` gives ``registry.forward`` tokens
+    only, and the encoder-decoder forward needs ``frame_embeds``: the
+    reference fails there, so the port does too, with the same exception
+    type naming the same key."""
+    from repro.core.executor import (
+        LocalQueryExecutionException as JLocalQueryExecutionException)
+    q = f"bdml(infer(window(vitals.hr, {W}), models.audio))"
+    jbd = jax_deployment()
+    jbd.register_model("audio", arch="seamless-m4t-medium")
+    jbd.register_stream("streamstore0",
+                        JStreamSpec("vitals.hr", ("ts", "hr"), capacity=64))
+    jbd.engines["streamstore0"].get("vitals.hr").append(_rows())
     bd = _deploy(StreamSpec("vitals.hr", ("ts", "hr"), capacity=64))
-    bd.register_model(alias, arch=arch)
+    bd.register_model("audio", arch="seamless-m4t-medium")
     bd.engines["streamstore0"].get("vitals.hr").append(_rows())
-    with pytest.raises(LocalQueryExecutionException) as exc:
-        bd.query(f"bdml(infer(window(vitals.hr, {W}), models.{alias}))")
-    assert isinstance(exc.value.__cause__, NotImplementedError)
-    assert "ROADMAP" in str(exc.value.__cause__)
+    with pytest.raises(JLocalQueryExecutionException,
+                       match="'frame_embeds'") as want:
+        jbd.query(q)
+    with pytest.raises(LocalQueryExecutionException,
+                       match="'frame_embeds'") as got:
+        bd.query(q)
+    assert "ml query failed on mlhost0" in str(want.value)
+    assert "ml query failed on mlhost0" in str(got.value)
+    assert isinstance(got.value.__cause__, KeyError)
 
 
 # -- surface ------------------------------------------------------------------
