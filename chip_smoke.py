@@ -69,6 +69,29 @@ without them.  It prints one JSON object per line:
              log bytes, rows replayed and recovery seconds, a blocking
              and an async checkpoint's seconds, and the feed's append
              and tick p50 with durability and without, in turns;
+5c. door     the waveform feed of phase 5 behind the serving front door
+             (``repro_torch.serve.frontdoor``): the stream declared in
+             ``ServeConfig.streams``, durable, with 64 tenants (a 65th
+             refused) each subscribed to the four standing queries, every
+             eighth also to the stream's rate; every polling tenant
+             handed the very result object tenant 0 is, each result
+             bitwise a twin deployment's whose queries are registered
+             directly, and window_minmax launched as often as for the
+             twin; the tenant that never polls loses exactly its results
+             past the last 64; two read replicas caught up from the
+             segment log every 20 ticks, each read bitwise the primary's
+             window; in turns (door, twin, twin, door); then 16 tenants
+             on the ABP/ECG join against its twin, join_bounds launched
+             as often; feed and tick times, each tick's fan-out and
+             garbage-collector time, replica refresh and read seconds,
+             and each turn's added peak memory;
+5d. admin    every command of ``repro_torch.core.admin`` in-process on the
+             card at the reference's default flags, each output checked
+             for what it states (serve's deliveries, recover's identical
+             fingerprint and replayed rows, trace's layers, compile among
+             them, the metrics' tick and serve series, rebalance's move,
+             status's islands), then ``python -m repro_torch.core.admin
+             status`` and ``examples/quickstart_torch.py`` as processes;
 6. flash     flash attention against its plain version on the card, each
              case through the kernel its dtype and head dim route it to
              (the tensor-core kernel for bf16 at head dim 64 or 128, the
@@ -153,8 +176,8 @@ without them.  It prints one JSON object per line:
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
-             launches on its path (phases 3-4 for quant_cast, phases 5
-             and 5b for the streaming kernels, phases 8, 8b and 9 for
+             launches on its path (phases 3-4 for quant_cast, phases 5,
+             5b and 5c for the streaming kernels, phases 8, 8b and 9 for
              flash attention,
              phase 9 for the scans, by route); for the scans also their
              time at S = 1 beside the state's bytes, mamba_scan's exp
@@ -1180,6 +1203,481 @@ def durable_feed(root) -> dict:
           "window_minmax_launches": total,
           "window_minmax_after_recovery": after})
     return {"window_minmax": total, "after_recovery": after}
+
+
+# -- 5c. the front door: 64 tenants on the ICU feed's standing queries -----------
+# the door's defaults: 64 tenants, 64 results buffered a subscription;
+# every tenant subscribes the four standing queries of phase 5, every
+# eighth also the stream's rate every other tick, and the last one never
+# polls; two read replicas, caught up from the segment log every 20 ticks
+TENANTS, RESULT_BUFFER = 64, 64
+RATE = (f"bdstream(rate({WAVE}))", 2)
+RATE_TENANTS = 8
+DOOR_QUERIES = {**WAVE_QUERIES, "rate": RATE}
+IDLE_TENANT = TENANTS - 1
+REPLICAS, REFRESH_EVERY = 2, 20
+JOIN_TENANTS = 16
+# what the tenant that never polls must have lost: all it was delivered
+# but the last 64; a query delivers on each tick it ran without error, so
+# hr_max_1h delivers 160 - 59 = 101, sliding_30s 160 / 20 = 8
+WANT_DROPPED = {"hr_max_1h": 37, "signal_min_1m": 96, "wave_avg": 96,
+                "sliding_30s": 0}
+
+
+class _GcClock:
+    """The seconds the cyclic garbage collector ran and its collections,
+    clocked through ``gc.callbacks``."""
+
+    def __init__(self) -> None:
+        self.seconds, self.collections, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections += 1
+
+
+def _same_result(name: str, a, b) -> bool:
+    """Two results of one query equal bit for bit; the rate's
+    rows_per_second reads the wall clock, so only its counters are."""
+    if name == "rate":
+        a, b = ({k: v for k, v in x.columns.items()
+                 if k != "rows_per_second"} for x in (a, b))
+    return _same_value(a, b)
+
+
+def _wave_spec(directory):
+    from repro_torch.stream.spec import Durability, StreamSpec
+    return StreamSpec(WAVE, ("signal", "hr"),
+                      capacity=WAVE_FEED["capacity"],
+                      durability=Durability(str(directory), **DURABLE))
+
+
+def _queries_s(bd, ran) -> float:
+    """The seconds a tick's standing queries took to execute."""
+    return sum(bd.streams.queries[name].last_latency_seconds
+               for name, _ in ran)
+
+
+def _door_turn(directory, batches, count, gc_clock) -> dict:
+    """The ICU feed behind a front door: 64 tenants, a 65th refused, the
+    polling tenants each handed the very result object tenant 0 is, the
+    idle tenant's losses counted, the replicas refreshed and read.
+    Returns each query's results by tick (tenant 0's), the door's
+    stats, its window_minmax launches and its timings, each tick's with
+    the door's fan-out (its tick listener, read from the
+    ``repro_serve_fanout_seconds`` histogram) and the collector's time."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.obs import metrics, trace
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.frontdoor import AdmissionError, FrontDoor
+    bd = default_deployment()
+    door = FrontDoor(bd, ServeConfig(streams=(_wave_spec(directory),)),
+                     stream_engine="streamstore0",
+                     result_buffer=RESULT_BUFFER)
+    check(door.max_tenants == TENANTS, f"max_tenants {door.max_tenants}")
+    sessions = [door.open_session(f"tenant{i}") for i in range(TENANTS)]
+    try:
+        door.open_session(f"tenant{TENANTS}")
+        refused = None
+    except AdmissionError as exc:
+        refused = str(exc)
+    check(refused is not None and "max_tenants" in refused,
+          "the 65th tenant was admitted")
+    subs = []
+    for i, session in enumerate(sessions):
+        subs.append({name: session.subscribe(q, every)
+                     for name, (q, every) in WAVE_QUERIES.items()})
+        if i % RATE_TENANTS == 0:
+            subs[i]["rate"] = session.subscribe(*RATE)
+    st = door.stats()
+    check(st["subscriptions"] == TENANTS * len(WAVE_QUERIES) + RATE_TENANTS
+          and st["shared_queries"] == len(WAVE_QUERIES) + 1,
+          f"subscriptions {st}")
+    door.replicate(WAVE, REPLICAS)
+    primary = bd.engines["streamstore0"].get(WAVE)
+    fanout = metrics.histogram("repro_serve_fanout_seconds")
+    results = {name: {} for name in DOOR_QUERIES}
+    ticks, refreshes, reads = [], [], []
+    before = count()
+    torch.cuda.synchronize()
+    for b, (signal, hr) in enumerate(batches, 1):
+        t0 = time.perf_counter()
+        primary.append({"signal": signal, "hr": hr})
+        t1 = time.perf_counter()
+        fan0, gc0 = fanout.sum, gc_clock.seconds
+        ran = bd.streams.tick()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fan_s, gc_s = fanout.sum - fan0, gc_clock.seconds - gc0
+        first = {name: sub.poll() for name, sub in subs[0].items()}
+        for i in range(1, TENANTS):
+            if i == IDLE_TENANT:
+                continue
+            for name, sub in subs[i].items():
+                got, want = sub.poll(), first[name]
+                check(len(got) == len(want) and all(
+                    t == u and v is w for (t, v), (u, w) in zip(got, want)),
+                    f"tenant {i} {name}, tick {b}: not tenant 0's result")
+        t3 = time.perf_counter()
+        for name, got in first.items():
+            results[name].update(got)
+        ticks.append({"append_s": t1 - t0, "tick_s": t2 - t1,
+                      "poll_s": t3 - t2, "fanout_s": fan_s, "gc_s": gc_s,
+                      "queries_s": _queries_s(bd, ran)})
+        if b % REFRESH_EVERY == 0:
+            t0 = time.perf_counter()
+            rows = door.refresh_replicas(WAVE)
+            refreshes.append({"s": time.perf_counter() - t0,
+                              "rows": sum(rows.values())})
+            for _ in range(REPLICAS):
+                # the read's span names the replica that served it
+                traced = trace.set_enabled(True)
+                t0 = time.perf_counter()
+                got = door.read(WAVE, MINUTE)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trace.set_enabled(traced)
+                served = [r.attrs["replica"] for r in trace.spans()
+                          if r.name == "serve/read"][-1]
+                want = primary.window(MINUTE)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                check(served.startswith(f"{WAVE}.replica")
+                      and _same_value(got, want),
+                      f"tick {b}: {served!r}'s window is not the primary's")
+                reads.append({"replica": served, "replica_s": t1 - t0,
+                              "primary_s": t2 - t1})
+    launches = count() - before
+    served = [r["replica"] for r in reads]
+    check(len(set(served)) == REPLICAS and all(
+        a != b for a, b in zip(served, served[1:])),
+          f"reads did not alternate replicas: {served}")
+    # the door's standing queries, fd<n> as the module counter names them
+    standing = {(cq.bql, cq.every_n_ticks): cq
+                for name, cq in bd.streams.queries.items()
+                if name.startswith("fd")}
+    check(len(standing) == len(DOOR_QUERIES),
+          f"standing queries {sorted(bd.streams.queries)}")
+    query_p50 = {}
+    for name, (q, every) in DOOR_QUERIES.items():
+        cq = standing[(q, every)]
+        query_p50[name] = 1e3 * _p50(list(cq.latencies))
+        want = WANT_ERRORS.get(name, 0)
+        check(cq.errors == want and (cq.errors == 0 or NOT_YET.match(
+            cq.last_error or "")), f"{name}: {cq.metrics()}")
+    for name, sub in subs[IDLE_TENANT].items():
+        check(sub.dropped == WANT_DROPPED[name]
+              and sub.delivered - sub.dropped == min(sub.delivered,
+                                                     RESULT_BUFFER)
+              and sub.delivered == len(results[name]),
+              f"idle tenant {name}: delivered {sub.delivered}, dropped "
+              f"{sub.dropped}")
+    stats = door.stats()
+    door.close()
+    check(not bd.streams.queries, "close left standing queries")
+    primary._durable.close()
+    return {"results": results, "stats": stats, "launches": launches,
+            "ticks": ticks, "refreshes": refreshes, "reads": reads,
+            "query_p50_ms": query_p50,
+            "idle_tenant": {n: {"delivered": s.delivered,
+                                "dropped": s.dropped}
+                            for n, s in subs[IDLE_TENANT].items()},
+            "refused": refused}
+
+
+def _twin_turn(directory, batches, count, gc_clock) -> dict:
+    """The same feed into a deployment whose queries are registered
+    directly: each query's result by tick, launches and timings."""
+    from repro_torch.core.api import default_deployment
+    bd = default_deployment()
+    primary = bd.register_stream("streamstore0", _wave_spec(directory))
+    for name, (q, every) in DOOR_QUERIES.items():
+        bd.register_continuous(q, every, name=name)
+    results = {name: {} for name in DOOR_QUERIES}
+    ticks = []
+    before = count()
+    torch.cuda.synchronize()
+    for b, (signal, hr) in enumerate(batches, 1):
+        t0 = time.perf_counter()
+        primary.append({"signal": signal, "hr": hr})
+        t1 = time.perf_counter()
+        gc0 = gc_clock.seconds
+        ran = bd.streams.tick()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for name, response in ran:
+            results[name][b] = response.value
+        ticks.append({"append_s": t1 - t0, "tick_s": t2 - t1,
+                      "poll_s": 0.0, "fanout_s": 0.0,
+                      "gc_s": gc_clock.seconds - gc0,
+                      "queries_s": _queries_s(bd, ran)})
+    launches = count() - before
+    primary._durable.close()
+    return {"results": results, "launches": launches, "ticks": ticks,
+            "query_p50_ms": {name: 1e3 * _p50(list(
+                bd.streams.queries[name].latencies))
+                for name in DOOR_QUERIES}}
+
+
+def _turn_times(turn) -> dict:
+    """A turn's feed time and its ticks' medians: the tick, its fan-out,
+    its collections and its standing queries' execution, apart and
+    taken from the tick."""
+    ticks = turn["ticks"]
+    return {"feed_s": sum(t["append_s"] + t["tick_s"] + t["poll_s"]
+                          for t in ticks),
+            "tick_p50_ms": 1e3 * _p50([t["tick_s"] for t in ticks]),
+            "fanout_p50_ms": 1e3 * _p50([t["fanout_s"] for t in ticks]),
+            "tick_gc_ms": 1e3 * sum(t["gc_s"] for t in ticks),
+            "ticks_with_gc": sum(t["gc_s"] > 0 for t in ticks),
+            "tick_less_fanout_gc_p50_ms": 1e3 * _p50(
+                [t["tick_s"] - t["fanout_s"] - t["gc_s"] for t in ticks]),
+            "queries_p50_ms": 1e3 * _p50([t["queries_s"] for t in ticks]),
+            "tick_outside_queries_p50_ms": 1e3 * _p50(
+                [t["tick_s"] - t["queries_s"] for t in ticks]),
+            "query_p50_ms": turn["query_p50_ms"],
+            "poll_p50_ms": 1e3 * _p50([t["poll_s"] for t in ticks]),
+            "gc_collections": turn["gc_collections"]}
+
+
+def _join_door(door_side: bool) -> dict:
+    """The paired ABP/ECG feed under the one-hour join: behind a door
+    whose 16 tenants subscribe it every 4 ticks (each handed the very
+    result object tenant 0 is), or registered directly."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.data.mimic import stream_mimic_paired_waveforms
+    from repro_torch.kernels.stream import stream as sk
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.frontdoor import FrontDoor
+    from repro_torch.stream.spec import StreamSpec
+    bd = default_deployment()
+    specs = tuple(StreamSpec.from_kwargs(
+        f"mimic2v26.{side}_stream", ("ts", side),
+        capacity=PAIRED_FEED["capacity"], shards=PAIRED_FEED["shards"],
+        ts_field="ts", max_delay=PAIRED_FEED["max_delay"])
+        for side in ("abp", "ecg"))
+    results, subs, door = {}, [], None
+    if door_side:
+        door = FrontDoor(bd, ServeConfig(streams=specs),
+                         stream_engine="streamstore0")
+        subs = [door.open_session(f"tenant{i}").subscribe(JOIN, JOIN_EVERY)
+                for i in range(JOIN_TENANTS)]
+    else:
+        for spec in specs:
+            bd.register_stream("streamstore0", spec)
+        bd.register_continuous(JOIN, JOIN_EVERY, name="abp_ecg_join")
+    before = sk.launch_counts()["join_bounds"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for info in stream_mimic_paired_waveforms(bd, **PAIRED_FEED):
+        if door_side:
+            want = subs[0].poll()
+            for i, sub in enumerate(subs[1:], 1):
+                got = sub.poll()
+                check(len(got) == len(want) and all(
+                    t == u and v is w for (t, v), (u, w) in zip(got, want)),
+                    f"join tenant {i}, batch {info['batch']}: not tenant "
+                    f"0's result")
+            results.update(want)
+        else:
+            results.update((bd.streams.ticks, bd.streams.queries[n].last_value)
+                           for n, _ in info["ran"])
+    torch.cuda.synchronize()
+    out = {"results": results, "wall_s": time.perf_counter() - t0,
+           "launches": sk.launch_counts()["join_bounds"] - before}
+    if door is not None:
+        out["stats"] = door.stats()
+        door.close()
+    return out
+
+
+def frontdoor_feed(root) -> dict:
+    """Phase 5c: the ICU feed's standing queries behind the front door,
+    64 tenants (and 16 on the join), against twins whose queries are
+    registered directly; in turns (door, twin, twin, door), each door
+    held against the twin beside it.  Returns each streaming kernel's
+    launches through the doors."""
+    import gc
+    from repro_torch.kernels.stream import stream as sk
+    _set_backend("jit")
+    signal, hr = _waveform_rows(WAVE_FEED["batch_rows"],
+                                WAVE_FEED["num_batches"], WAVE_FEED["seed"])
+    n = WAVE_FEED["batch_rows"]
+    batches = [(signal[i:i + n], hr[i:i + n])
+               for i in range(0, signal.shape[0], n)]
+
+    def count():
+        return sk.launch_counts()["window_minmax"]
+
+    order = ("door", "twin", "twin", "door")
+    gc_clock = _GcClock()
+    gc.callbacks.append(gc_clock)
+    sk.reset_launch_counts()              # the door's path starts here
+    turns, door_launches, peak = [], 0, []
+    for i, kind in enumerate(order):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        collections = gc_clock.collections
+        if kind == "door":
+            turn = _door_turn(root / f"door{i}", batches, count, gc_clock)
+            door_launches += turn["launches"]
+        else:
+            turn = _twin_turn(root / f"twin{i}", batches, count, gc_clock)
+        turn["gc_collections"] = gc_clock.collections - collections
+        # the turn's own peak: what it added to what earlier turns hold
+        peak.append(torch.cuda.max_memory_allocated() - held)
+        turns.append(turn)
+        if i % 2:                         # turns 0-1 and 2-3 are pairs
+            door, twin = ((turns[i - 1], turn) if kind == "twin"
+                          else (turn, turns[i - 1]))
+            check(door["launches"] == twin["launches"],
+                  f"window_minmax: {door['launches']} launches behind "
+                  f"{TENANTS} tenants, {twin['launches']} for the twin")
+            for name, got in door["results"].items():
+                want = twin["results"][name]
+                check(sorted(got) == sorted(want)
+                      and all(_same_result(name, got[t], want[t])
+                              for t in want),
+                      f"{name}: the door's results differ from the twin's")
+            door["results"] = twin["results"] = None
+    gc.callbacks.remove(gc_clock)
+    join_door = _join_door(True)
+    door_joins = join_door["launches"]
+    join_twin = _join_door(False)
+    check(join_door["launches"] == join_twin["launches"] > 0,
+          f"join_bounds: {join_door['launches']} launches behind "
+          f"{JOIN_TENANTS} tenants, {join_twin['launches']} for the twin")
+    check(sorted(join_door["results"]) == sorted(join_twin["results"])
+          and all(_same_value(join_door["results"][t],
+                              join_twin["results"][t])
+                  for t in join_twin["results"]),
+          "the join's results behind the door differ from the twin's")
+    door = turns[0]
+    refresh, reads = door["refreshes"], door["reads"]
+    emit({"phase": "frontdoor", "tenants": TENANTS,
+          "refused_65th": door["refused"],
+          "turns": [dict(_turn_times(t), kind=k, launches=t["launches"],
+                         peak_bytes_added=p)
+                    for k, t, p in zip(order, turns, peak)],
+          "stats": {k: door["stats"][k] for k in (
+              "tenants", "subscriptions", "shared_queries",
+              "shared_attaches", "results_delivered", "results_dropped",
+              "replicas", "p50_tick_ms", "p99_tick_ms", "p99_fanout_ms")},
+          "idle_tenant": door["idle_tenant"],
+          "replica_refresh_s": [r["s"] for r in refresh],
+          "replica_refresh_rows": [r["rows"] for r in refresh],
+          "read_replica_p50_ms": 1e3 * _p50([r["replica_s"] for r in reads]),
+          "read_primary_p50_ms": 1e3 * _p50([r["primary_s"] for r in reads]),
+          "reads_compared": len(reads)})
+    emit({"phase": "frontdoor", "feed": "paired", "tenants": JOIN_TENANTS,
+          "door_wall_s": join_door["wall_s"],
+          "twin_wall_s": join_twin["wall_s"],
+          "join_bounds_launches": join_door["launches"],
+          "twin_join_bounds_launches": join_twin["launches"],
+          "results_compared": len(join_twin["results"]),
+          "stats": join_door["stats"]})
+    emit({"phase": "frontdoor", "checks": "passed",
+          "window_minmax_launches": door_launches,
+          "join_bounds_launches": door_joins})
+    return {"window_minmax": door_launches, "join_bounds": door_joins}
+
+
+# -- 5d. the admin interface ---------------------------------------------------------
+ADMIN_COMMANDS = ("status", "demo-status", "streams", "rebalance", "joins",
+                  "trace", "recover", "serve", "ml", "metrics")
+
+
+def _admin(argv) -> str:
+    """One admin command run in-process; its standard output."""
+    import contextlib
+    import io
+    from repro_torch.core import admin
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        admin.main(argv)
+    return out.getvalue()
+
+
+def _last_json(text: str) -> dict:
+    """The JSON object a command prints last (after a flamegraph, say)."""
+    start = text.rfind("\n{")
+    return json.loads(text[start + 1:] if start >= 0 else text)
+
+
+def admin_phase(root) -> dict:
+    """Phase 5d: every admin command on the card at the reference's
+    default flags (--ticks 8, --tenants 4), each output checked for what
+    it states; then the CLI and the quickstart twin as processes."""
+    from repro_torch.core import admin, islands
+    from repro_torch.core.api import default_deployment
+    seconds, outputs = {}, {}
+    for command in ADMIN_COMMANDS:
+        argv = [command]
+        if command == "trace":
+            argv += ["--out", str(root / "trace.json")]
+        if command == "recover":
+            argv += ["--dir", str(root / "wal")]
+        t0 = time.perf_counter()
+        outputs[command] = _admin(argv)
+        torch.cuda.synchronize()
+        seconds[command] = time.perf_counter() - t0
+    got = {c: _last_json(outputs[c]) for c in ADMIN_COMMANDS
+           if c != "metrics"}
+    check(set(got["status"]["islands"]) == set(islands.ISLANDS) - {"ml"},
+          f"status islands {sorted(got['status']['islands'])}")
+    bd = default_deployment()
+    bd.register_model("lm")
+    check(list(admin.status(bd)["islands"]) == list(islands.ISLANDS),
+          "a deployment with a model does not list the five islands")
+    check(got["demo-status"]["catalog"]["objects"] > 0, "demo-status")
+    check(got["streams"]["streams"]["queries"]["wave_avg"]["executions"]
+          == 8, "streams: wave_avg did not run each tick")
+    check(len(got["rebalance"]["rebalance"]["moves"]) == 1,
+          f"rebalance moved {got['rebalance']['rebalance']}")
+    check(got["joins"]["joined_rows"] > 0, "joins joined no rows")
+    layers = got["trace"]["layers"]
+    traced = {e["cat"] for e in json.loads(
+        (root / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"}
+    check(len(layers) >= 4 and "compile" in layers
+          and set(layers) <= traced, f"trace layers {layers}")
+    recovered = got["recover"]
+    check(recovered["identical"] is True and recovered["recovery"][
+        "vitals.stream"]["rows_replayed"] > 0, f"recover {recovered}")
+    check(got["serve"]["delivered_per_tenant"] == [8] * 4,
+          f"serve delivered {got['serve']['delivered_per_tenant']}")
+    check(got["ml"]["delivered_to_tenant0"] > 0
+          and all(np.isfinite(got["ml"]["abp_scores"])), "ml scores")
+    text = outputs["metrics"]
+    check("repro_stream_tick_seconds" in text and "repro_serve_" in text,
+          "metrics lacks the tick or serve series")
+    emit({"phase": "admin", "seconds": seconds, "layers": layers,
+          "trace_spans": got["trace"]["spans"],
+          "recover": {k: recovered[k] for k in ("identical", "rows")},
+          "rows_replayed": recovered["recovery"]["vitals.stream"][
+              "rows_replayed"],
+          "serve": got["serve"]["serve"],
+          "rebalance_moves": got["rebalance"]["rebalance"]["moves"],
+          "metrics_lines": text.count("\n")})
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here / "src"))
+    runs = {}
+    for name, argv in (("admin_status", ["-m", "repro_torch.core.admin",
+                                         "status"]),
+                       ("quickstart_torch", [str(here / "examples"
+                                                 / "quickstart_torch.py")])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        runs[name] = {"rc": proc.returncode,
+                      "wall_s": time.perf_counter() - t0}
+        check(proc.returncode == 0,
+              f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check("-- catalog" in proc.stdout, "the quickstart twin printed no catalog")
+    emit({"phase": "admin", "processes": runs, "checks": "passed"})
+    return {"seconds": seconds, "processes": runs}
 
 
 # -- 6. flash attention against its plain version ----------------------------------
@@ -2709,6 +3207,13 @@ def main() -> int:
                                      dir=root) as tmp:
         durable = durable_feed(pathlib.Path(tmp))
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="frontdoor_",
+                                     dir=root) as tmp:
+        door = frontdoor_feed(pathlib.Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="admin_", dir=root) as tmp:
+        admin_phase(pathlib.Path(tmp))
+    torch.cuda.empty_cache()
 
     flash_err = flash_parity()
     scan_err = scan_parity()
@@ -2731,12 +3236,18 @@ def main() -> int:
 
     rows = quant_kernel_rows(launches, err)
     rows += stream_kernel_rows(
-        {**stream_launches, "window_minmax": stream_launches["window_minmax"]
-         + durable["window_minmax"]}, stream_err, stream_kernels)
+        {"window_minmax": stream_launches["window_minmax"]
+         + durable["window_minmax"] + door["window_minmax"],
+         "join_bounds": stream_launches["join_bounds"]
+         + door["join_bounds"]}, stream_err, stream_kernels)
     rows[-2]["launches_by_path"] = {
         "stream": stream_launches["window_minmax"],
         "durable_feed": durable["window_minmax"],
-        "durable_feed_after_recovery": durable["after_recovery"]}
+        "durable_feed_after_recovery": durable["after_recovery"],
+        "frontdoor": door["window_minmax"]}
+    rows[-1]["launches_by_path"] = {
+        "stream": stream_launches["join_bounds"],
+        "frontdoor": door["join_bounds"]}
     rows += flash_kernel_rows(serve["launches"] + jamba["flash_attention"]
                               + seamless["launches"], flash_err)
     rows[-1]["launches_by_path"] = {"serve_qwen2": serve["launches"],

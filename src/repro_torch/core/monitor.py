@@ -75,6 +75,10 @@ class Monitor:
         # and the last recover_stream outcome
         self.durability_stats: Dict[str, Dict[str, Any]] = {}
         self.recoveries: Dict[str, Dict[str, Any]] = {}
+        # serving front-door health (repro_torch.serve.frontdoor feeds
+        # this: tenants, subscriptions, shared queries, admission rejects,
+        # delivered/dropped results, replica counts)
+        self.serve_stats: Dict[str, Any] = {}
         # ml-island inference health: the repro_torch.stream.ml.stats()
         # block (models loaded, waves, windows scored, params-cache hits),
         # process-wide like the jit stats
@@ -281,6 +285,25 @@ class Monitor:
                 metrics.counter(name, f"multi-producer ingest {key}",
                                 stream=stream_name).set_total(stats[key])
 
+    def observe_serve(self, stats: Dict[str, Any]) -> None:
+        """Record the serving front door's health block (one per
+        process — the front door is a singleton tier over the
+        deployment, like the jit stats)."""
+        with self._lock:
+            self.serve_stats = dict(stats)
+        for key in ("tenants", "subscriptions", "shared_queries",
+                    "replicas"):
+            if key in stats:
+                metrics.gauge(f"repro_serve_{key}",
+                              f"serving front door: {key}").set(
+                    stats[key])
+        for key in ("admission_rejects", "results_delivered",
+                    "results_dropped"):
+            if key in stats:
+                metrics.counter(
+                    f"repro_serve_{key}_total",
+                    f"serving front door: {key}").set_total(stats[key])
+
     def observe_jit(self, stats: Dict[str, Any]) -> None:
         """Record the compiled standing-query path's counters (the
         ``repro_torch.stream.compile.stats()`` block: active backend, plan
@@ -445,6 +468,7 @@ class Monitor:
                 "durability_stats": {
                     k: dict(v)
                     for k, v in self.durability_stats.items()},
+                "serve_stats": dict(self.serve_stats),
                 "recoveries": {k: dict(v)
                                for k, v in self.recoveries.items()},
                 "shard_stats": {

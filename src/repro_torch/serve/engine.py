@@ -7,17 +7,16 @@ the recurrent families' states have no cursor and take the same steps);
 requests are left-padded into waves by the scheduler, as the reference
 pads them.  A session runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where the kernels' plain versions stand in for
-them.  The serving front door (``frontdoor.py``) comes with its own slice
-(ROADMAP.md), and with it ``ServeConfig.streams``, which only the front
-door reads; the reference's unused ``quantize_kv_between_waves`` knob is
-not carried over.
+them.  ``ServeConfig.streams`` declares the streams the serving front
+door (``frontdoor.py``) provisions when it opens.  The reference's
+``quantize_kv_between_waves`` knob, which nothing reads, is left out.
 """
 from __future__ import annotations
 
 import atexit
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ from repro_torch import _device, _tree
 from repro_torch.models import lm, registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import metrics, trace
+from repro_torch.stream.spec import StreamSpec
 
 def place_params(params: Any, device) -> Any:
     """The parameter tree on ``device``, with every leaf the model casts
@@ -52,6 +52,14 @@ class ServeConfig:
     max_parallel_waves: int = 1
     # serve a Prometheus /metrics endpoint on this port (None = don't)
     metrics_port: Optional[int] = None
+    # polystore streams this serving tier provisions at startup — the
+    # same declarative StreamSpec values register_stream/recover_stream
+    # speak (the FrontDoor registers each when it opens; specs are
+    # frozen, so the whole config stays hashable)
+    streams: Tuple[StreamSpec, ...] = ()
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "streams", tuple(self.streams))
 
 
 @dataclasses.dataclass

@@ -12,10 +12,11 @@ execution rides the concurrent DAG Executor.
 Per-tick metrics — execution latency, plan-cache hit, rows dropped by
 ring-buffer backpressure since the previous execution, and whether the
 query fell behind the arrival cadence — are kept per query and fed to the
-Monitor (``observe_stream``), surfacing in ``StreamRuntime.status()``.
-Each tick also drives the checkpoint cadence of the durable streams
-(``register_durable``).  The tick listeners come with the serving front
-door that reads them (ROADMAP.md).
+Monitor (``observe_stream``), surfacing in ``StreamRuntime.status()``
+and ``admin.status()``.  Each tick also drives the checkpoint cadence of
+the durable streams (``register_durable``) and calls the tick listeners
+(``add_tick_listener``), through which the serving front door fans
+results out to its tenants.
 """
 from __future__ import annotations
 
@@ -131,10 +132,30 @@ class StreamRuntime:
         # recover_stream): tick drives their checkpoint cadence and
         # feeds their log/checkpoint stats to the Monitor
         self._durable_streams: List[Any] = []
+        # tick listeners: fn(tick_no, ran) called after every tick with
+        # the results that ran, regardless of who drove it (cooperative
+        # caller or the background driver) — the serving front door
+        # fans results out to tenant subscriptions through this
+        self._tick_listeners: List[Any] = []
+        self.listener_errors = 0
+        self.last_listener_error: Optional[str] = None
 
     def register_durable(self, stream) -> None:
         if stream not in self._durable_streams:
             self._durable_streams.append(stream)
+
+    def add_tick_listener(self, fn) -> None:
+        """Call ``fn(tick_no, ran)`` after every tick (``ran`` is the
+        [(query name, Response)] list that tick produced).  Listener
+        errors are recorded, never propagated into the tick."""
+        with self._lock:
+            if fn not in self._tick_listeners:
+                self._tick_listeners.append(fn)
+
+    def remove_tick_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._tick_listeners:
+                self._tick_listeners.remove(fn)
 
     # -- registration ---------------------------------------------------------
     def register_continuous(self, query: str, every_n_ticks: int = 1,
@@ -255,6 +276,16 @@ class StreamRuntime:
                         tick=tick_no) as sp:
             ran = self._run_tick()
             sp.set(ran=len(ran))
+            with self._lock:
+                listeners = list(self._tick_listeners)
+            for fn in listeners:
+                try:
+                    fn(tick_no, ran)
+                except Exception as exc:                 # noqa: BLE001
+                    with self._lock:
+                        self.listener_errors += 1
+                        self.last_listener_error = \
+                            f"{type(exc).__name__}: {exc}"
         metrics.histogram(
             "repro_stream_tick_seconds",
             "wall time per StreamRuntime tick").observe(

@@ -1,7 +1,8 @@
 """The port stands alone: importing any of ``repro_torch`` loads neither
-``jax`` nor the JAX package ``repro``, no port source (nor the GPU smoke
-script) imports them, and the deployment's entry point runs on the GPU
-unless the caller asks for the CPU."""
+``jax`` nor the JAX package ``repro``, no port source (nor a script that
+drives it on the GPU, nor an example twin) imports them, and the
+deployment's entry points (``default_deployment``, the admin CLI, the
+example twins) run on the GPU unless the caller asks for the CPU."""
 import pathlib
 import re
 import subprocess
@@ -17,7 +18,11 @@ from repro_torch.stream.ml import MLEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, the scripts that drive it on the card, and the example twins
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + [ROOT / name for name in ("chip_smoke.py", "scan_variants.py",
+                                       "stream_ab.py")]
+           + sorted((ROOT / "examples").glob("*_torch.py")))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s))",
     re.MULTILINE)
@@ -74,8 +79,14 @@ DURABLE_MODULES = ["repro_torch.models.encdec",
                    "repro_torch.stream.durability"]
 
 
+# the serving front door and the admin interface
+FRONTDOOR_MODULES = ["repro_torch.serve.frontdoor",
+                     "repro_torch.core.islands", "repro_torch.core.admin"]
+
+
 @pytest.mark.parametrize("module",
-                         STREAM_MODULES + ML_MODULES + DURABLE_MODULES)
+                         STREAM_MODULES + ML_MODULES + DURABLE_MODULES
+                         + FRONTDOOR_MODULES)
 def test_streaming_modules_load_no_jax(module):
     """Each module of the streaming, ML and durability slices, imported
     alone in a fresh interpreter, loads neither jax nor the reference
@@ -130,6 +141,27 @@ def test_engines_built_alone_run_on_the_card(monkeypatch, cls):
     assert cls("e0", device="cpu").device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert cls("e0").device == torch.device("cuda")
+
+
+@pytest.mark.parametrize("entry", ["admin", "quickstart",
+                                   "streaming_mimic"])
+def test_cli_entry_points_run_on_the_card(monkeypatch, entry):
+    """The admin CLI and the example twins build their deployments on
+    the GPU unless ``--device cpu`` is given: without one they raise."""
+    import importlib.util
+
+    from repro_torch.core import admin
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "admin":
+        main = admin.main
+    else:
+        path = ROOT / "examples" / f"{entry}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"_{entry}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        main = module.main
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(["status"] if entry == "admin" else [])
 
 
 def test_interop_from_numpy_names_its_device():
