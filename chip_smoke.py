@@ -164,6 +164,28 @@ without them.  It prints one JSON object per line:
              decode step against a full forward through the plain path,
              5e-2 of the largest logit, row by row; prefill and decode
              seconds, decode tokens/s and peak device memory;
+9b. train    Qwen2-1.5B trained at its published width (float32 params
+             drawn on the card from seed 0, the attention projections
+             rescaled to their true fan-in as in phase 8, bf16 compute,
+             the plain attention: neither package has a backward
+             kernel): a global
+             batch of 8 x 512 tokens from the TokenDataset through
+             HostStore -> Migrator -> DenseHBM, 2 microbatches, AdamW
+             warming up over 2 of 10 steps; 4 steps, every metric finite,
+             opt.step 4 and lr the schedule's; then 4 steps repeated on
+             one batch, whose loss must fall; loss, grad norm, lr,
+             seconds and tokens/s a step, peak device memory, one more
+             step's card time against its wall time (torch.profiler) and
+             AdamW's time alone over the state; the state's
+             second moments compressed to int8 (quantize_2d once per v
+             leaf, codes and scales bitwise the plain version's on the
+             same v on the CPU, the round trip within half a scale) and
+             the state through the compressed tensor store (quantize and
+             dequantize once per moment leaf each way; params and step
+             bitwise); two steps of reduced Qwen2 on the card against the
+             CPU (loss 1e-3, grad norm 5e-2 relative); make_train_step
+             refusing attn_impl="flash" and flash attention refusing
+             CUDA inputs that require grad;
 10. ml       the bdml island: standing infers of the lm and moe aliases
              over one-minute windows of the ICU waveform feed (a
              1,048,576-row ring, 20 batches) and of the rwkv6 and mamba
@@ -176,7 +198,8 @@ without them.  It prints one JSON object per line:
              launches, L2 defeated by rotating buffers) beside its bound,
              its plain version's time, the time of the one PyTorch call
              that computes the same function where there is one, and its
-             launches on its path (phases 3-4 for quant_cast, phases 5,
+             launches on its path (phases 3-4 and 9b for quant_cast,
+             by path, phases 5,
              5b and 5c for the streaming kernels, phases 8, 8b and 9 for
              flash attention,
              phase 9 for the scans, by route); for the scans also their
@@ -2607,6 +2630,315 @@ def ml_phase() -> None:
         bd.streams.deregister(f"{alias}_score")
 
 
+# -- 9b. training Qwen2-1.5B at full width -------------------------------------
+# Qwen2-1.5B at its published width (configs/qwen2_1_5b.py), float32 params
+# and bf16 compute through the plain attention (the only path either
+# package can differentiate): a global batch of 8 x 512 tokens from the
+# TokenDataset through HostStore -> Migrator -> DenseHBM, two
+# microbatches, AdamW warming up over 2 of 10 steps; 4 steps over the
+# dataset, then 4 more repeated on one batch, whose loss must fall
+TRAIN = dict(seq_len=512, global_batch=8, seed=SEED)
+TRAIN_STEPS, TRAIN_MICROBATCHES = 4, 2
+TRAIN_OPT = dict(warmup_steps=2, total_steps=10)
+# the card against the CPU on reduced Qwen2: the tolerances
+# tests/test_torch_train.py holds the port to against the reference (bf16
+# products accumulated in another order); two steps of 4 x 32 tokens
+TRAIN_TOL = {"loss": 1e-3, "grad_norm": 5e-2}
+TWIN = dict(seq_len=32, global_batch=4, seed=SEED)
+# a dequantized moment lies within half a scale of the moment, plus the
+# float32 roundings of x / scale and q * scale (127 * 2**-24 of a scale
+# each)
+HALF_SCALE = 0.5 + 2 ** -14
+
+
+def _polystore_batch(bd, ds, step: int) -> dict:
+    """``ds``'s batch at ``step`` as a relational Table in the HostStore,
+    cast by the Migrator to the DenseHBM array engine, and read back as
+    the train step's batch (tests/test_system.py:23)."""
+    from repro_torch.core.migrator import MigrationParams
+    from repro_torch.data.pipeline import batch_as_table, table_as_batch
+    host, dense = bd.engines["hoststore0"], bd.engines["densehbm0"]
+    host.put("train_batch", batch_as_table(ds.batch_at(step), bd.device))
+    bd.migrator.migrate(host, "train_batch", dense, "train_batch_dev",
+                        MigrationParams(method="binary"))
+    return table_as_batch(dense.get("train_batch_dev"), ds.local_batch,
+                          ds.dcfg.seq_len)
+
+
+def _train_steps(step_fn, state, batches, opt_cfg, what: str):
+    """Run ``step_fn`` over ``batches`` (callables giving each batch),
+    timing each step to a synchronize; every metric finite and ``lr`` the
+    schedule's.  Returns (state, per-step records)."""
+    from repro_torch.optim import adamw
+    records = []
+    for make_batch in batches:
+        batch = make_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec = {k: float(v) for k, v in metrics.items()}
+        n = int(state["opt"]["step"])
+        check(all(np.isfinite(list(rec.values()))),
+              f"{what} step {n}: non-finite metrics {rec}")
+        want_lr = float(adamw.lr_at(opt_cfg, state["opt"]["step"]))
+        check(rec["lr"] == want_lr, f"{what} step {n}: lr {rec['lr']} is "
+              f"not lr_at's {want_lr}")
+        tokens = int(batch["tokens"].numel())
+        rec.update(step=n, seconds=seconds, tokens=tokens,
+                   tokens_per_s=tokens / seconds)
+        emit({"phase": "train", "run": what, **rec})
+        records.append(rec)
+    return state, records
+
+
+def _moment_checks(state) -> dict:
+    """compress_moments_int8 on the full-width state: one quantize launch
+    per v leaf, codes and scales bitwise the plain version's on the same v
+    copied to the CPU; decompress_moments_int8 within half a scale."""
+    from repro_torch import _tree
+    from repro_torch.kernels.quant_cast import ops, ref
+    from repro_torch.kernels.quant_cast import quant_cast as k
+    from repro_torch.optim import adamw
+    leaves = _tree.tree_leaves(state["opt"]["v"])
+    k.reset_launch_counts()                  # the compression starts here
+    comp = adamw.compress_moments_int8(state["opt"])
+    torch.cuda.synchronize()
+    compress = k.launch_counts()             # ... and ends here
+    check(compress == {"quantize": len(leaves), "dequantize": 0},
+          f"compress_moments_int8 launched {compress} for {len(leaves)} "
+          f"v leaves")
+    pages = _tree.tree_flatten_up_to(_tree.tree_flatten(state["opt"]["v"])[1],
+                                     comp["v"])
+    t0 = time.perf_counter()
+    for v, page in zip(leaves, pages):
+        qr, sr = ref.quantize_blocks(ops._pad_to_tiles(v.cpu().reshape(-1)))
+        check(torch.equal(page["q"].cpu(), qr)
+              and torch.equal(page["scale"].cpu(), sr),
+              f"int8 moment codes of a {tuple(v.shape)} leaf differ from "
+              f"the plain version's")
+    plain_s = time.perf_counter() - t0
+    k.reset_launch_counts()
+    back = adamw.decompress_moments_int8(comp)
+    torch.cuda.synchronize()
+    decompress = k.launch_counts()
+    check(decompress == {"quantize": 0, "dequantize": len(leaves)},
+          f"decompress_moments_int8 launched {decompress}")
+    worst = 0.0
+    for v, v1, page in zip(leaves, _tree.tree_leaves(back["v"]), pages):
+        scale = page["scale"].reshape(-1).repeat_interleave(k.BLOCK)
+        scale = scale[:v.numel()].reshape(v.shape)
+        worst = max(worst, float(((v1 - v).abs() / scale).max()))
+    check(worst <= HALF_SCALE, f"decompressed moments {worst} scales from "
+          f"the moments (bound {HALF_SCALE})")
+    elements = sum(v.numel() for v in leaves)
+    out = {"v_leaves": len(leaves), "elements": elements,
+           "compress": compress, "decompress": decompress,
+           "codes_bitwise_plain_on_cpu": True, "plain_cpu_s": plain_s,
+           "worst_error_in_scales": worst}
+    emit({"phase": "train_moments", **out})
+    return out
+
+
+def _store_checks(state) -> dict:
+    """The tensor store's compressed moments on the card: register_train_state
+    quantizes m and v a leaf at a time, fetch_train_state dequantizes them;
+    params and step come back bitwise, the moments within half a scale
+    of their largest element's."""
+    from repro_torch import _tree
+    from repro_torch.core.api import default_deployment
+    from repro_torch.core.tensorstore import PlacementPolicy, TensorPolystore
+    from repro_torch.kernels.quant_cast import quant_cast as k
+    n = len(_tree.tree_leaves(state["params"]))
+    # a deployment of its own, whose pages go when it returns
+    ts = TensorPolystore(default_deployment(),
+                         PlacementPolicy(moments="compressed"))
+    k.reset_launch_counts()                  # register and fetch start here
+    t0 = time.perf_counter()
+    ts.register_train_state("qwen2-1.5b", state)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ts.fetch_train_state("qwen2-1.5b")
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t0
+    counts = k.launch_counts()               # ... and end here
+    check(counts == {"quantize": 2 * n, "dequantize": 2 * n},
+          f"the compressed tensor store launched {counts} for 2 x {n} "
+          f"moment leaves")
+    check(all(torch.equal(a, b) for a, b in zip(
+        _tree.tree_leaves(state["params"]),
+        _tree.tree_leaves(back["params"]))), "params did not come back")
+    check(torch.equal(back["opt"]["step"], state["opt"]["step"]),
+          "step did not come back")
+    worst = 0.0
+    for key in ("m", "v"):
+        for a, b in zip(_tree.tree_leaves(state["opt"][key]),
+                        _tree.tree_leaves(back["opt"][key])):
+            check(a.shape == b.shape and b.device == a.device,
+                  f"a fetched {key} leaf")
+            worst = max(worst, float((a - b).abs().max()
+                                     / a.abs().max().clamp_min(1e-30)))
+    # tests/test_substrate.py's bound: the largest scale's half, x 1.01
+    check(worst <= 1.01 / 127.0, f"fetched moments {worst} of their "
+          f"largest element from the registered ones")
+    out = {"leaves": n, "launches": counts, "register_s": register_s,
+           "fetch_s": fetch_s, "params_step_bitwise": True,
+           "moments_worst_relative": worst}
+    emit({"phase": "train_store", **out})
+    return out
+
+
+def _card_against_cpu() -> dict:
+    """Two steps of reduced Qwen2 from one state on one batch, on the card
+    and on the CPU, TF32 off (as main sets it)."""
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    step = make_train_step(cfg, TrainConfig(
+        optimizer=AdamWConfig(**TRAIN_OPT),
+        microbatches=TRAIN_MICROBATCHES))
+    raw = TokenDataset(cfg, DataConfig(**TWIN)).batch_at(0)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = _tree.tree_map(lambda t: t.cuda(), cpu)
+    rows = []
+    for _ in range(2):
+        cpu, want = step(cpu, {k: torch.from_numpy(v)
+                               for k, v in raw.items()})
+        card, got = step(card, {k: torch.from_numpy(v).cuda()
+                                for k, v in raw.items()})
+        row = {}
+        for key, tol in TRAIN_TOL.items():
+            w, g = float(want[key]), float(got[key])
+            check(abs(g - w) <= tol * abs(w), f"reduced Qwen2 {key}: card "
+                  f"{g} against CPU {w} (tolerance {tol} relative)")
+            row[key] = {"card": g, "cpu": w, "relative": abs(g - w) / abs(w)}
+        rows.append(row)
+    emit({"phase": "train_card_vs_cpu", "steps": rows,
+          "tolerance": TRAIN_TOL})
+    return {"steps": rows}
+
+
+def _refusals() -> dict:
+    """Training refuses attn_impl="flash" before it runs; the flash kernel
+    on CUDA inputs that require grad raises and returns nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import registry
+    from repro_torch.train.step import TrainConfig, make_train_step
+    refused = {}
+    try:
+        make_train_step(registry.get_config("qwen2-1.5b", attn_impl="flash"),
+                        TrainConfig())
+    except ValueError as e:
+        refused["make_train_step"] = str(e)
+    check("make_train_step" in refused,
+          "make_train_step took attn_impl='flash'")
+    q, k, v = (x.requires_grad_() for x in _qkv(1, 128, 128, 12, 2, 128,
+                                                  torch.bfloat16, SEED))
+    before, out = fk.launches, None
+    try:
+        out = fops.flash_attention(q, k, v, causal=True)
+    except RuntimeError as e:
+        refused["flash_attention"] = str(e)
+    check(out is None and "flash_attention" in refused
+          and fk.launches == before,
+          "flash_attention took CUDA inputs that require grad")
+    emit({"phase": "train_refusals", **refused})
+    return refused
+
+
+def train_phase() -> dict:
+    """Qwen2-1.5B trained at full width through the polystore (4 steps,
+    then 4 on one fixed batch), the int8 moments of its state through the
+    quant_cast kernels, the card against the CPU on reduced Qwen2, and the
+    refusals of the flash route."""
+    from repro_torch.core.api import default_deployment
+    from repro_torch.data.pipeline import DataConfig, TokenDataset
+    from repro_torch.kernels.quant_cast import quant_cast as k
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import logical as L
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    cfg = registry.get_config("qwen2-1.5b")
+    check(cfg.attn_impl == "reference", cfg.attn_impl)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    step_fn = make_train_step(cfg, TrainConfig(
+        optimizer=opt_cfg, microbatches=TRAIN_MICROBATCHES))
+    bd = default_deployment()
+    ds = TokenDataset(cfg, DataConfig(**TRAIN))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    # attention at its true fan-in, as phase 8 serves it (_unit_scale)
+    _unit_scale_attention(state["params"])
+    k.reset_launch_counts()
+    state, steps = _train_steps(
+        step_fn, state, [lambda i=i: _polystore_batch(bd, ds, i)
+                         for i in range(TRAIN_STEPS)], opt_cfg, "dataset")
+    check(int(state["opt"]["step"]) == TRAIN_STEPS,
+          f"opt.step {int(state['opt']['step'])} after {TRAIN_STEPS} steps")
+    check(k.launch_counts() == {"quantize": 0, "dequantize": 0},
+          "the train step launched a quant_cast kernel")
+    peak = torch.cuda.max_memory_allocated() - base
+    moments = _moment_checks(state)
+    store = _store_checks(state)
+    torch.cuda.empty_cache()
+    state, fixed = _train_steps(
+        step_fn, state, [lambda: _polystore_batch(bd, ds, 0)] * TRAIN_STEPS,
+        opt_cfg, "fixed_batch")
+    check(fixed[-1]["loss"] < fixed[0]["loss"],
+          f"the loss on one fixed batch did not fall: "
+          f"{[r['loss'] for r in fixed]}")
+    # where a step's time goes: one more step on the fixed batch under the
+    # profiler (its result dropped), and AdamW alone over the state
+    batch = _polystore_batch(bd, ds, 0)
+    profiled = _device_times(lambda: step_fn(state, batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adamw.apply_updates(opt_cfg, state["params"], state["opt"]["m"],
+                        state["opt"])
+    torch.cuda.synchronize()
+    optimizer_s = time.perf_counter() - t0
+    emit({"phase": "train_profile", "step": profiled,
+          "busy_share": profiled["device_us"] / profiled["wall_us"],
+          "apply_updates_s": optimizer_s})
+    del state, batch
+    torch.cuda.empty_cache()
+    twin = _card_against_cpu()
+    refused = _refusals()
+    warm = [r["seconds"] for r in steps[1:] + fixed]
+    out = {"params": L.count_params(registry.param_specs(cfg)),
+           "global_batch": TRAIN["global_batch"], "seq_len": TRAIN["seq_len"],
+           "microbatches": TRAIN_MICROBATCHES,
+           "losses": [r["loss"] for r in steps],
+           "fixed_batch_losses": [r["loss"] for r in fixed],
+           "step_s": [r["seconds"] for r in steps + fixed],
+           "warm_step_s_mean": float(np.mean(warm)),
+           "tokens_per_s_warm": steps[0]["tokens"] / float(np.mean(warm)),
+           "peak_bytes_train": peak,
+           "peak_bytes_phase": torch.cuda.max_memory_allocated() - base,
+           "launches": {name: moments["compress"][name]
+                        + moments["decompress"][name]
+                        + store["launches"][name]
+                        for name in ("quantize", "dequantize")},
+           "profiled_step": {"device_us": profiled["device_us"],
+                             "wall_us": profiled["wall_us"]},
+           "apply_updates_s": optimizer_s,
+           "card_vs_cpu": twin, "refused": sorted(refused)}
+    emit({"phase": "train_summary", **out})
+    return out
+
+
 # -- 9. kernel times --------------------------------------------------------------
 def _graph_ms(fns, reps: int = 20) -> float:
     """Mean device time of one call, from CUDA events around replays of a
@@ -3231,10 +3563,16 @@ def main() -> int:
                                 "mamba_scan_decode", "flash_attention"),
                                num_layers=JAMBA_LAYERS)
     torch.cuda.empty_cache()
+    train = train_phase()                     # resets and reads its counts
+    torch.cuda.empty_cache()
     ml_phase()
     torch.cuda.empty_cache()
 
-    rows = quant_kernel_rows(launches, err)
+    rows = quant_kernel_rows({name: launches[name] + train["launches"][name]
+                              for name in launches}, err)
+    for row, name in zip(rows, ("quantize", "dequantize")):
+        row["launches_by_path"] = {"query": launches[name],
+                                   "train": train["launches"][name]}
     rows += stream_kernel_rows(
         {"window_minmax": stream_launches["window_minmax"]
          + durable["window_minmax"] + door["window_minmax"],

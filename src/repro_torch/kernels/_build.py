@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 
 def _build_dir() -> Path:
     """``$REPRO_TORCH_BUILD_DIR`` if set; else ``build/repro_torch/`` at
@@ -115,3 +117,16 @@ def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
         with _LOCK:
             _LIBS[key] = lib
         return lib
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: a kernel
+    called through ``ctypes`` has no backward pass, and the tensor it
+    returns would carry no graph, so a loss through it would train its
+    inputs' producers on silently wrong (missing) gradients."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward pass: its CUDA kernel does not "
+            f"take inputs that require grad (train with "
+            f"attn_impl='reference', or call it under torch.no_grad())")

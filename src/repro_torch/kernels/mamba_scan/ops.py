@@ -1,7 +1,8 @@
 """Public selective-scan entry point: a tensor on the card goes to the
 CUDA kernel (``mamba_scan.py``), one on the CPU to the plain scan
 (``ref.py``).  There is no fallback: a CUDA tensor launches the kernel or
-the call raises.
+the call raises; under grad mode, so does a CUDA input that
+requires grad: the kernel has no backward pass.
 
 Unlike the reference's wrapper, which ran its chunked kernel from a zero
 state and folded ``h0`` in afterwards, the kernel takes ``h0`` as an
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._build import refuse_grad as _refuse_grad
 from repro_torch.kernels.mamba_scan import mamba_scan as k
 from repro_torch.kernels.mamba_scan import ref
 
@@ -26,6 +28,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """u,dt: (B,S,Di); a: (Di,N); b,c: (B,S,N); optional h0 (B,Di,N).
     Returns (y (B,S,Di) in u's dtype, final h (B,Di,N) f32)."""
     if u.device.type == "cuda":
+        _refuse_grad("mamba_scan", u, dt, a, b, c, h0)
         return k.selective_scan_3d(u, dt, a, b, c, h0)
     if u.device.type == "cpu":
         bsz, _, di = u.shape

@@ -1,7 +1,8 @@
 """Public WKV6 entry point in the reference's (B, S, H, D) layout: a
 tensor on the card goes to the CUDA kernel (``rwkv6_scan.py``), one on the
 CPU to the plain recurrence (``ref.py``).  There is no fallback: a CUDA
-tensor launches the kernel or the call raises.
+tensor launches the kernel or the call raises; under grad mode, so does
+a CUDA input that requires grad: the kernel has no backward pass.
 
 Unlike the reference's wrapper, which ran its chunked kernel from a zero
 state and folded the carry in afterwards, the kernel takes the initial
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._build import refuse_grad as _refuse_grad
 from repro_torch.kernels.rwkv6_scan import ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as k
 
@@ -25,6 +27,7 @@ def wkv6(r: torch.Tensor, kk: torch.Tensor, v: torch.Tensor,
     """r,k,v,w: (B,S,H,D); u: (H,D); optional initial state (B,H,D,D).
     Returns (y (B,S,H,D), final state (B,H,D,D))."""
     if r.device.type == "cuda":
+        _refuse_grad("rwkv6_scan", r, kk, v, w, u, state)
         return k.wkv6_4d(r, kk, v, w, u, state)
     if r.device.type == "cpu":
         b, _, h, d = r.shape

@@ -17,9 +17,11 @@ from repro_torch import _tree
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
+    # always a copy: a tensor sharing the caller's buffer would let an
+    # in-place write (a carried state) change what the caller holds
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16)
+        bits = np.array(a, order="C").view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, order="C")).to(device)
 

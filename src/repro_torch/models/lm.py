@@ -213,9 +213,14 @@ def _run_stack(params, x, cfg, *, cache=None, pos=None, mode="train"):
                             cache=cache[f"prologue{j}"] if cache else None,
                             pos=pos, mode=mode)
         aux_total = aux_total + aux
+    # each stacked parameter split once into its layers' views, so that
+    # autograd stacks their gradients in one step rather than scattering
+    # every layer's into a zero-filled copy of the whole stack
+    flat_p, block_def = _tree.tree_flatten(params["blocks"])
+    per_layer = [p.unbind(0) for p in flat_p]
     for i in range(cfg.num_scanned()):
+        block_p = _tree.tree_unflatten(block_def, [u[i] for u in per_layer])
         # views of layer i: writes into a cache view land in the stack
-        block_p = _tree.tree_map(lambda p: p[i], params["blocks"])
         block_c = (_tree.tree_map(lambda c: c[i], cache["blocks"])
                    if cache else None)
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -8,20 +8,21 @@ Batch dicts:
   prefill: {tokens (B,S)} (+ prefix_embeds / frame_embeds) + cache tree
   decode:  {tokens (B,1)} + cache tree + pos
             (+ memory (B,S_src,D) for enc-dec)
+  train:   the forward batch + labels (B,S_text) int32
 
 Every arch of the pool runs: the decoder-only families (dense, moe, ssm,
 hybrid, vlm) through ``lm`` and the encoder-decoder one
-(seamless-m4t-medium) through ``encdec``.  ``loss_fn`` and
-``make_train_batch`` come with the training slice (ROADMAP.md).
+(seamless-m4t-medium) through ``encdec``.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import _device
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 
@@ -97,3 +98,53 @@ def decode_step(params, batch: Dict[str, Any], cache, pos: int,
         return encdec.decode_step(params, batch["tokens"], batch["memory"],
                                   cache, pos, cfg)
     return lm.decode_step(params, batch["tokens"], cache, pos, cfg)
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token CE over the last S_text positions (+ MoE aux loss), the
+    log-softmax in float32."""
+    s_text = labels.shape[1]
+    logits = logits[:, -s_text:]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return nll.mean() + aux_weight * aux
+
+
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text positions for a cell's total sequence length."""
+    if cfg.frontend == "vision":
+        return seq_len - cfg.num_prefix_embeds
+    return seq_len
+
+
+def make_train_batch(cfg: ModelConfig, seq_len: int, batch: int,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> Dict[str, Any]:
+    """Materialized random batch on ``device`` (the GPU unless the caller
+    names one), drawn from ``generator`` (seed 0 when None).  The draws
+    are torch's: parity tests build their batches with numpy and feed the
+    same arrays to both packages."""
+    device = _device.resolve(device, "make_train_batch")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    st = text_len(cfg, seq_len)
+
+    def ints():
+        return torch.randint(0, cfg.vocab_size, (batch, st),
+                             generator=generator, device=generator.device,
+                             dtype=torch.int32).to(device)
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device,
+                           dtype=torch.float32).to(device)
+
+    out = {"tokens": ints(), "labels": ints()}
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = normal(
+            (batch, cfg.num_prefix_embeds, cfg.d_model))
+    if cfg.frontend == "audio":
+        out["frame_embeds"] = normal(
+            (batch, max(1, seq_len // cfg.src_ratio), cfg.d_model))
+    return out

@@ -684,3 +684,112 @@ def test_scans_are_bitwise_repeatable(card):
         again = kernel(*x)
         assert torch.equal(first[0], again[0])
         assert torch.equal(first[1], again[1])
+
+
+# -- the training path ----------------------------------------------------------------
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """Flash attention and the scans have no backward pass: under grad
+    mode a CUDA input that requires grad raises, naming the kernel, and
+    launches nothing; it never returns a detached output."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as mk
+    from repro_torch.kernels.mamba_scan import ops as mops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
+    q, kk, v = _qkv(card, 1, 64, 64, 4, 2, 64, torch.bfloat16, 7)
+    wkv = _wkv(card, 1, 16, 2, 16, 8, carried=False)[:5]
+    scan = _scan(card, 1, 16, 32, 8, torch.float32, 9, carried=False)[:5]
+    calls = {"flash_attention": (lambda *x: fops.flash_attention(
+                 *x, causal=True), [q, kk, v], lambda: fk.launches),
+             "rwkv6_scan": (wops.wkv6, wkv, lambda: wk.launches),
+             "mamba_scan": (mops.selective_scan, scan, lambda: mk.launches)}
+    for name, (fn, xs, count) in calls.items():
+        for i in range(len(xs)):
+            args = [x.clone().requires_grad_(j == i)
+                    for j, x in enumerate(xs)]
+            before = count()
+            with pytest.raises(RuntimeError,
+                               match=f"{name} has no backward pass"):
+                fn(*args)
+            assert count() == before, name
+            with torch.no_grad():
+                out = fn(*args)
+            assert count() == before + 1, name
+            outs = out if isinstance(out, tuple) else (out,)
+            assert not any(o.requires_grad for o in outs), name
+
+
+def _reduced_state(device):
+    from repro_torch.models import registry
+    from repro_torch.train.step import init_train_state
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, _to(state, device)
+
+
+def _to(tree, device):
+    from repro_torch import _tree
+    return _tree.tree_map(lambda t: t.to(device), tree)
+
+
+def test_moment_compression_on_the_card_is_the_plain_versions(card):
+    """compress_moments_int8 launches quantize_2d once per v leaf; codes
+    and scales bitwise the plain version's on the same v on the CPU; the
+    round trip within half a scale (and a few float32 roundings)."""
+    from repro_torch import _tree
+    from repro_torch.optim import adamw
+    _, state = _reduced_state(card)
+    opt = dict(state["opt"])
+    opt["v"] = _tree.tree_map(lambda p: p.abs() * 0.05, state["params"])
+    leaves = _tree.tree_leaves(opt["v"])
+    k.reset_launch_counts()
+    comp = adamw.compress_moments_int8(opt)
+    torch.cuda.synchronize()
+    assert k.launch_counts() == {"quantize": len(leaves), "dequantize": 0}
+    plain = adamw.compress_moments_int8(_to(opt, "cpu"))
+    assert k.launch_counts()["quantize"] == len(leaves)
+    treedef = _tree.tree_flatten(opt["v"])[1]
+    pages = _tree.tree_flatten_up_to(treedef, comp["v"])
+    for got, want in zip(pages,
+                         _tree.tree_flatten_up_to(treedef, plain["v"])):
+        assert torch.equal(got["q"].cpu(), want["q"])
+        assert torch.equal(got["scale"].cpu(), want["scale"])
+        assert got["shape"] == want["shape"]
+    back = adamw.decompress_moments_int8(comp)
+    assert k.launch_counts()["dequantize"] == len(leaves)
+    for v0, v1, page in zip(leaves, _tree.tree_leaves(back["v"]), pages):
+        scale = page["scale"].reshape(-1)
+        n = v0.numel()
+        per_elem = scale.repeat_interleave(k.BLOCK)[:n].reshape(v0.shape)
+        assert bool(((v1 - v0).abs() <= per_elem * (0.5 + 2 ** -14)).all())
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(card):
+    """Two steps of reduced Qwen2 from one state on one batch, on the card
+    and on the CPU (TF32 off): the loss within 1e-3 and the grad norm
+    within 5e-2 relative, the tolerances tests/test_torch_train.py holds
+    the port to against the reference (bf16 products accumulated in
+    another order)."""
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg, cpu_state = _reduced_state("cpu")
+    batch = registry.make_train_batch(cfg, 32, 4, device="cpu")
+    step = make_train_step(cfg, TrainConfig(
+        optimizer=AdamWConfig(total_steps=10, warmup_steps=2),
+        microbatches=2))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card_state = _to(cpu_state, card)
+        card_batch = _to(batch, card)
+        for _ in range(2):
+            cpu_state, want = step(cpu_state, batch)
+            card_state, got = step(card_state, card_batch)
+            assert float(got["loss"]) == pytest.approx(
+                float(want["loss"]), rel=1e-3)
+            assert float(got["grad_norm"]) == pytest.approx(
+                float(want["grad_norm"]), rel=5e-2)
+            assert float(got["lr"]) == float(want["lr"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert int(card_state["opt"]["step"]) == 2

@@ -84,9 +84,15 @@ FRONTDOOR_MODULES = ["repro_torch.serve.frontdoor",
                      "repro_torch.core.islands", "repro_torch.core.admin"]
 
 
+# the training path, imported by submodule (a package directory alone
+# would import as a namespace package)
+TRAIN_MODULES = ["repro_torch.optim.adamw", "repro_torch.train.step",
+                 "repro_torch.data.pipeline"]
+
+
 @pytest.mark.parametrize("module",
                          STREAM_MODULES + ML_MODULES + DURABLE_MODULES
-                         + FRONTDOOR_MODULES)
+                         + FRONTDOOR_MODULES + TRAIN_MODULES)
 def test_streaming_modules_load_no_jax(module):
     """Each module of the streaming, ML and durability slices, imported
     alone in a fresh interpreter, loads neither jax nor the reference
@@ -144,7 +150,7 @@ def test_engines_built_alone_run_on_the_card(monkeypatch, cls):
 
 
 @pytest.mark.parametrize("entry", ["admin", "quickstart",
-                                   "streaming_mimic"])
+                                   "streaming_mimic", "train_lm"])
 def test_cli_entry_points_run_on_the_card(monkeypatch, entry):
     """The admin CLI and the example twins build their deployments on
     the GPU unless ``--device cpu`` is given: without one they raise."""
