@@ -218,6 +218,22 @@ without them.  It prints one JSON object per line:
              registers and spills (ptxas) and whether its machine code
              holds wgmma (HGMMA) and TMA loads (UTMALDG), and the
              seamless decoder's shape (8, 1024, 16/16, 64);
+12. dryrun   the sharded path and the launch layer at the published
+             widths: ``launch.dryrun.run_cell`` as rank 0 of the 16 x 16
+             production mesh (a fake process group of 256: collectives
+             that move nothing) for qwen2-1.5b x decode_32k, qwen2-1.5b x
+             train_4k and command-r-plus-104b x decode_32k with bf16 and
+             with int8 KV pages, then qwen2-1.5b x decode_32k on the
+             2 x 16 x 16 mesh without the cost probe; every status ok on
+             256 or 512 devices; the three decode cells also run rank
+             0's local step on the card (Command R+'s shard: 104 B
+             params / 256 in bf16 and 8 sequences x 2,048 cache
+             positions x 64 layers), each held to its trace: the bytes
+             asked of the allocator for its inputs equal argument_bytes
+             within 512 a tensor, the collectives counted by kind equal,
+             and the matrix products' FLOPs under torch.profiler equal
+             the traced count; one line a cell with peak_bytes and
+             step_ms, and the phase's seconds;
 
 then the card's name and power limit, and last the contract line
 ``{"ok": true, "device": {...}}``.  No phase catches an error.
@@ -2967,6 +2983,56 @@ def _graph_ms(fns, reps: int = 20) -> float:
     return start.elapsed_time(end) / (5 * reps * len(fns))
 
 
+# phase 12: (arch, shape, multi_pod, cost probe, run rank 0's step, flags);
+# the Command R+ pair is the reference hill-climb's C0 and C1
+DRYRUN_CELLS = (
+    ("qwen2-1.5b", "decode_32k", False, True, True, {}),
+    ("qwen2-1.5b", "train_4k", False, True, False, {}),
+    ("command-r-plus-104b", "decode_32k", False, True, True, {}),
+    ("command-r-plus-104b", "decode_32k", False, True, True,
+     {"kv_cache_dtype": "int8"}),
+    ("qwen2-1.5b", "decode_32k", True, False, False, {}),
+)
+ARG_SLACK = 512                  # the caching allocator's rounding, a tensor
+
+
+def dryrun_phase() -> None:
+    """Phase 12: the production-mesh dry run of the cells, the decode
+    cells' rank-0 steps run on the card and held to their traces."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod, probe, execute, flags in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, multi_pod, cost_probe=probe,
+                            device="cuda", execute=execute, **flags)
+        emit({"phase": "dryrun", "flags": flags, **r})
+        name = f"{arch} x {shape} {r['mesh']} {flags}"
+        check(r["status"] == "ok", f"dry run of {name}: {r}")
+        check(r["devices"] == (512 if multi_pod else 256),
+              f"{name}: {r['devices']} devices")
+        if probe:
+            check("probe_error" not in r and r["flops_per_device"] > 0,
+                  f"{name}: cost probe {r.get('probe_error')}")
+        if execute:
+            ex = r["executed"]
+            slack = ARG_SLACK * ex["argument_tensors"]
+            check(abs(ex["requested_argument_bytes"]
+                      - r["memory"]["argument_bytes"]) <= slack,
+                  f"{name}: inputs took {ex['requested_argument_bytes']} "
+                  f"bytes, the plan {r['memory']['argument_bytes']}")
+            check(ex["collective_counts"] == ex["traced_collective_counts"],
+                  f"{name}: collectives {ex['collective_counts']} run, "
+                  f"{ex['traced_collective_counts']} traced")
+            check(ex["profiler_matmul_flops"] == ex["traced_matmul_flops"]
+                  == ex["matmul_flops"],
+                  f"{name}: matmul FLOPs {ex['profiler_matmul_flops']} "
+                  f"profiled, {ex['traced_matmul_flops']} traced")
+            check(ex["step_ms"] > 0 and ex["peak_bytes"] > 0, name)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0})
+
+
 def quant_kernel_rows(launches: dict, err: dict) -> list:
     from repro_torch.kernels.quant_cast import ref
     from repro_torch.kernels.quant_cast import quant_cast as k
@@ -3567,6 +3633,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ml_phase()
     torch.cuda.empty_cache()
+    dryrun_phase()
 
     rows = quant_kernel_rows({name: launches[name] + train["launches"][name]
                               for name in launches}, err)

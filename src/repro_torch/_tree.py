@@ -3,7 +3,9 @@
 Dicts flatten in sorted key order, lists and tuples in order, and
 ``None`` holds no leaf, exactly as ``jax.tree`` does, so int8 pages
 written leaf by leaf in one package unflatten in the other.  Anything
-else (tensors, numpy arrays, scalars) is a leaf.
+else (tensors, numpy arrays, scalars, and a subclass of tuple such as
+``sharding.logical.PartitionSpec``, as ``jax.tree`` keeps its own
+``PartitionSpec``) is a leaf.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def _flatten(tree: Any, path: Tuple[Any, ...], pairs: list) -> TreeDef:
         keys = sorted(tree)
         return ("dict", tuple(keys),
                 tuple(_flatten(tree[k], path + (k,), pairs) for k in keys))
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple):
         return (type(tree).__name__, len(tree),
                 tuple(_flatten(x, path + (i,), pairs)
                       for i, x in enumerate(tree)))

@@ -93,14 +93,49 @@ def embed_specs(vocab: int, d_model: int, tie: bool) -> dict:
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
-                 compute_dtype: torch.dtype) -> torch.Tensor:
+                 compute_dtype: torch.dtype, rules=None) -> torch.Tensor:
     # gathering rows, then casting them, gives the bits of casting the
     # whole table first (as the reference does) at a fraction of the work
-    return params["embedding"][tokens.long()].to(compute_dtype)
+    table = params["embedding"]
+    if L.is_dtensor(table):
+        x = _sharded_rows(table, tokens)
+    else:
+        x = table[tokens.long()]
+    return L.constrain(x.to(compute_dtype), rules,
+                       (L.BATCH, L.SEQ, L.ACT_EMBED))
 
 
-def logits_out(params: dict, x: torch.Tensor,
-               softcap: float = 0.0) -> torch.Tensor:
+def _sharded_rows(table, tokens):
+    """``table[tokens]`` for a DTensor table whose rows (the vocab) may be
+    sharded: the table is gathered along its other dims, and each rank
+    takes the rows it holds, zeros for the others, into a partial sum
+    over the vocab's mesh dims (one rank adds each row, the rest add
+    zeros)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    vocab = [m for m, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    tokens = L.replicated_like(tokens, table)
+    tok_pl = [Replicate() if m in vocab else p
+              for m, p in enumerate(tokens.placements)]
+    # the rows a rank takes are its own tokens': along a mesh dim that
+    # splits the tokens, the table's gradient is a partial sum
+    local = table.redistribute(
+        mesh, [Shard(0) if m in vocab else Replicate()
+               for m in range(mesh.ndim)]).to_local(grad_placements=[
+                   Shard(0) if m in vocab else
+                   Partial() if isinstance(tok_pl[m], Shard) else Replicate()
+                   for m in range(mesh.ndim)])
+    tk = tokens.redistribute(mesh, tok_pl).to_local().long()
+    off, n = L.shard_span(table, 0)
+    held = (tk >= off) & (tk < off + n)
+    rows = local[torch.where(held, tk - off, 0)] * held[..., None]
+    return L.partial_sum(rows, mesh, [Partial() if m in vocab else p
+                                      for m, p in enumerate(tok_pl)])
+
+
+def logits_out(params: dict, x: torch.Tensor, softcap: float = 0.0,
+               rules=None) -> torch.Tensor:
     if "unembed" in params:
         logits = x @ params["unembed"].to(x.dtype)
     else:
@@ -108,7 +143,7 @@ def logits_out(params: dict, x: torch.Tensor,
     logits = logits.float()
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return L.constrain(logits, rules, (L.BATCH, L.SEQ, L.VOCAB))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +160,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
     head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta, x.device)   # (Dh/2,)
+    freqs = L.replicated_like(rope_frequencies(head_dim, theta, x.device),
+                              x)                          # (Dh/2,)
     angles = positions[..., None].float() * freqs         # (..., S, Dh/2)
     cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, Dh/2)
     sin = torch.sin(angles)[..., None, :]
@@ -154,17 +190,22 @@ def ffn_specs(d_model: int, d_ff: int, kind: str) -> dict:
     raise ValueError(kind)
 
 
-def apply_ffn(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_ffn(params: dict, x: torch.Tensor, kind: str,
+              rules=None) -> torch.Tensor:
     dt = x.dtype
     if kind == "swiglu":
         gate = x @ params["wi_gate"].to(dt)
         up = x @ params["wi_up"].to(dt)
-        return (silu(gate) * up) @ params["wo"].to(dt)
-    if kind == "gelu":
+        h = L.constrain(silu(gate) * up, rules, (L.BATCH, L.SEQ, L.MLP))
+        out = h @ params["wo"].to(dt)
+    elif kind == "gelu":
         h = x @ params["wi"].to(dt)
         h = gelu_tanh(h + params["bi"].to(dt))
-        return h @ params["wo"].to(dt) + params["bo"].to(dt)
-    raise ValueError(kind)
+        h = L.constrain(h, rules, (L.BATCH, L.SEQ, L.MLP))
+        out = h @ params["wo"].to(dt) + params["bo"].to(dt)
+    else:
+        raise ValueError(kind)
+    return L.constrain(out, rules, (L.BATCH, L.SEQ, L.ACT_EMBED))
 
 
 # ---------------------------------------------------------------------------

@@ -17,16 +17,28 @@ Three entry points:
   decode_step(...)   — one-token step against the caches (serve path)
 
 Caches are written in place (see ``attention``, ``rwkv6`` and ``mamba``).
+
+Every entry point takes ``rules`` (``sharding.logical.AxisRules``): with
+DTensor parameters and inputs on a mesh, the activations are pinned at
+the reference's constraint sites; with plain tensors, or ``rules`` None,
+nothing changes.  Block remat: with ``cfg.remat`` "block" or "full" and
+gradients on, each stacked period runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the reference
+wraps its scan body in ``jax.checkpoint``; the gradients are the same
+bits.  ``cfg.scan_layers`` changes nothing here: the layers are a loop
+either way.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _tree
 from repro_torch.models import attention, layers, mamba, moe, rwkv6
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import logical as L
 
 COMPUTE_DTYPE = torch.bfloat16          # activations; params stay f32
 # the parameter subtrees the model reads in float32; every other leaf is
@@ -136,57 +148,60 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
 # Sub-layer application (caches are written in place, so nothing returns
 # them but the entry points)
 # ---------------------------------------------------------------------------
-def _apply_mixer(params, x, kind, cfg, *, cache=None, pos=None,
+def _apply_mixer(params, x, kind, cfg, rules, *, cache=None, pos=None,
                  mode="train"):
     """The mixer's output; ``cache`` is the sub-layer's state dict or
     None (train mode reads and writes no state)."""
     if kind == "rwkv6":
         state = cache["time"] if mode != "train" else None
-        return rwkv6.apply_time_mix(params, x, cfg, state)[0]
+        return rwkv6.apply_time_mix(params, x, cfg, state, rules)[0]
     if kind == "mamba":
         state = cache["ssm"] if mode != "train" else None
-        return mamba.apply_mamba(params, x, cfg, state)[0]
+        return mamba.apply_mamba(params, x, cfg, state, rules)[0]
     if kind != "attn":
         raise ValueError(kind)
     if mode == "train":
-        return attention.self_attention(params, x, cfg)
+        return attention.self_attention(params, x, cfg, rules=rules)
     if mode == "prefill":
         s = x.shape[1]
-        out = attention.self_attention(params, x, cfg)
+        out = attention.self_attention(params, x, cfg, rules=rules)
         # fill the cache with this sequence's k/v (codec-aware); k and v
         # are projected a second time, as the reference does
-        positions = torch.arange(s, device=x.device)[None, :]
-        _, k, v = attention.project_qkv(params, x, cfg, positions)
+        positions = L.replicated_like(
+            torch.arange(s, device=L.local_device(x))[None, :], x)
+        _, k, v = attention.project_qkv(params, x, cfg, positions,
+                                        rules=rules)
         attention.write_kv(cache["kv"], k, v, 0, cfg)
         return out
-    return attention.decode_attention(params, x, cache["kv"], pos, cfg)[0]
+    return attention.decode_attention(params, x, cache["kv"], pos, cfg,
+                                      rules)[0]
 
 
-def _apply_ffn(params, x, kind, cfg, *, cache=None, mode="train"):
+def _apply_ffn(params, x, kind, cfg, rules, *, cache=None, mode="train"):
     """(the FFN's output, its auxiliary loss: a 0-d tensor or 0.0)."""
     if kind == "dense":
-        return layers.apply_ffn(params, x, cfg.mlp_kind), 0.0
+        return layers.apply_ffn(params, x, cfg.mlp_kind, rules), 0.0
     if kind == "moe":
-        return moe.apply_moe(params, x, cfg)
+        return moe.apply_moe(params, x, cfg, rules)
     if kind == "rwkv_cm":
         state = cache["channel"] if mode != "train" else None
-        return rwkv6.apply_channel_mix(params, x, cfg, state)[0], 0.0
+        return rwkv6.apply_channel_mix(params, x, cfg, state, rules)[0], 0.0
     raise ValueError(kind)
 
 
-def _apply_sub(sub_params, x, mixer_kind, ffn_kind, cfg, *, cache=None,
-               pos=None, mode="train"):
+def _apply_sub(sub_params, x, mixer_kind, ffn_kind, cfg, rules, *,
+               cache=None, pos=None, mode="train"):
     """One (mixer + ffn) sub-layer with residuals -> (x, aux)."""
     h = layers.apply_norm(sub_params["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    attn_out = _apply_mixer(sub_params["mixer"], h, mixer_kind, cfg,
+    attn_out = _apply_mixer(sub_params["mixer"], h, mixer_kind, cfg, rules,
                             cache=cache, pos=pos, mode=mode)
     if cfg.parallel_block:
-        ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg,
+        ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg, rules,
                                   cache=cache, mode=mode)
         return x + attn_out + ffn_out, aux
     x = x + attn_out
     h = layers.apply_norm(sub_params["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg,
+    ffn_out, aux = _apply_ffn(sub_params["ffn"], h, ffn_kind, cfg, rules,
                               cache=cache, mode=mode)
     return x + ffn_out, aux
 
@@ -194,22 +209,48 @@ def _apply_sub(sub_params, x, mixer_kind, ffn_kind, cfg, *, cache=None,
 # ---------------------------------------------------------------------------
 # Full model passes
 # ---------------------------------------------------------------------------
-def _embed_inputs(params, tokens, prefix_embeds=None):
-    x = layers.embed_tokens(params["embed"], tokens, COMPUTE_DTYPE)
+def _embed_inputs(params, tokens, rules=None, prefix_embeds=None):
+    x = layers.embed_tokens(params["embed"], tokens, COMPUTE_DTYPE, rules)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(COMPUTE_DTYPE), x], dim=1)
+        x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.ACT_EMBED))
     return x
 
 
-def _run_stack(params, x, cfg, *, cache=None, pos=None, mode="train"):
+def remat_on(cfg: ModelConfig) -> bool:
+    """Whether a period (a layer, for enc-dec) is recomputed in the
+    backward pass: ``cfg.remat`` asks for it and gradients are on."""
+    return cfg.remat in ("block", "full") and torch.is_grad_enabled()
+
+
+def _run_period(block_p, block_c, x, plan, cfg, rules, pos, mode):
+    """One stacked period (every sub-layer of the plan) -> (x, aux)."""
+    aux_sum = L.replicated_like(
+        torch.zeros((), dtype=torch.float32, device=L.local_device(x)), x)
+    for n, (mixer_kind, ffn_kind) in enumerate(plan):
+        x, aux = _apply_sub(block_p[f"sub{n}"], x, mixer_kind, ffn_kind,
+                            cfg, rules,
+                            cache=block_c[f"sub{n}"] if block_c else None,
+                            pos=pos, mode=mode)
+        # sequence-parallel residual: the saved carries are seq-sharded
+        if mode == "train":
+            x = L.constrain(x, rules, (L.BATCH, L.RESID, L.ACT_EMBED))
+        aux_sum = aux_sum + aux
+    return x, aux_sum
+
+
+def _run_stack(params, x, cfg, rules=None, *, cache=None, pos=None,
+               mode="train"):
     """Prologue layers then the stacked layers, in order; the cache's
     (stacked) tensors are written in place.  Returns (x, aux): the
     auxiliary losses summed a period at a time, then over the periods,
     as the reference's scan carries them."""
     plan = cfg.layer_plan()
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = L.replicated_like(
+        torch.zeros((), dtype=torch.float32, device=L.local_device(x)), x)
     for j in range(cfg.first_k_dense):
         x, aux = _apply_sub(params[f"prologue{j}"], x, "attn", "dense", cfg,
+                            rules,
                             cache=cache[f"prologue{j}"] if cache else None,
                             pos=pos, mode=mode)
         aux_total = aux_total + aux
@@ -223,45 +264,48 @@ def _run_stack(params, x, cfg, *, cache=None, pos=None, mode="train"):
         # views of layer i: writes into a cache view land in the stack
         block_c = (_tree.tree_map(lambda c: c[i], cache["blocks"])
                    if cache else None)
-        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-        for n, (mixer_kind, ffn_kind) in enumerate(plan):
-            x, aux = _apply_sub(block_p[f"sub{n}"], x, mixer_kind, ffn_kind,
-                                cfg,
-                                cache=block_c[f"sub{n}"] if block_c else None,
-                                pos=pos, mode=mode)
-            aux_sum = aux_sum + aux
+        if remat_on(cfg):
+            x, aux_sum = checkpoint(_run_period, block_p, block_c, x, plan,
+                                    cfg, rules, pos, mode,
+                                    use_reentrant=False)
+        else:
+            x, aux_sum = _run_period(block_p, block_c, x, plan, cfg, rules,
+                                     pos, mode)
         aux_total = aux_total + aux_sum
     return x, aux_total
 
 
-def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, tokens, cfg: ModelConfig, rules=None,
+            prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward: tokens (B,S_text) -> (logits (B,S,V) f32, aux_loss)."""
-    x = _embed_inputs(params, tokens, prefix_embeds)
-    x, aux = _run_stack(params, x, cfg, mode="train")
+    x = _embed_inputs(params, tokens, rules, prefix_embeds)
+    x, aux = _run_stack(params, x, cfg, rules, mode="train")
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind,
                           cfg.norm_eps)
-    logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)
+    logits = layers.logits_out(params["embed"], x, cfg.logit_softcap, rules)
     return logits, aux
 
 
-def prefill(params, tokens, cache, cfg: ModelConfig, prefix_embeds=None):
+def prefill(params, tokens, cache, cfg: ModelConfig, rules=None,
+            prefix_embeds=None):
     """Fill caches for positions [0, S), in place. Returns (last-token
     logits, cache)."""
-    x = _embed_inputs(params, tokens, prefix_embeds)
-    x, _ = _run_stack(params, x, cfg, cache=cache, mode="prefill")
+    x = _embed_inputs(params, tokens, rules, prefix_embeds)
+    x, _ = _run_stack(params, x, cfg, rules, cache=cache, mode="prefill")
     x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm_kind,
                           cfg.norm_eps)
-    logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)
+    logits = layers.logits_out(params["embed"], x, cfg.logit_softcap, rules)
     return logits, cache
 
 
-def decode_step(params, tokens, cache, pos: int, cfg: ModelConfig):
+def decode_step(params, tokens, cache, pos: int, cfg: ModelConfig,
+                rules=None):
     """One-token decode. tokens: (B,1); pos: cache write position (the
     cache is written in place)."""
-    x = _embed_inputs(params, tokens)
-    x, _ = _run_stack(params, x, cfg, cache=cache, pos=pos, mode="decode")
+    x = _embed_inputs(params, tokens, rules)
+    x, _ = _run_stack(params, x, cfg, rules, cache=cache, pos=pos,
+                      mode="decode")
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind,
                           cfg.norm_eps)
-    logits = layers.logits_out(params["embed"], x, softcap=cfg.logit_softcap)
+    logits = layers.logits_out(params["embed"], x, cfg.logit_softcap, rules)
     return logits, cache

@@ -85,8 +85,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Python ``sum`` adds them."""
     cw, s = w.shape[0], x.shape[1]
     if prev is None:
-        prev = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
-                           device=x.device)
+        prev = L.replicated_like(
+            torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+                        device=L.local_device(x)), x)
     xp = torch.cat([prev, x], dim=1)                  # (B, S+CW-1, Di)
     out = xp[:, :s] * w[0]
     for i in range(1, cw):
@@ -105,20 +106,34 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return scan_ref.selective_scan(u, dt, a, b, c, h0)
 
 
+_SEQ_MLP = (L.BATCH, L.SEQ, L.MLP)
+_SEQ_STATE = (L.BATCH, L.SEQ, L.STATE)
+_H_AXES = (L.BATCH, L.MLP, L.STATE)
+
+
+def _plain_scan(u, dt, a, b, c, h0):
+    if h0 is None:
+        h0 = torch.zeros((u.shape[0], u.shape[2], a.shape[1]),
+                         dtype=torch.float32, device=u.device)
+    return selective_scan(u, dt, a, b, c, h0)
+
+
 def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[dict] = None
+                state: Optional[dict] = None, rules=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """On a mesh the plain scan runs on each rank's batch rows and
+    channels (it is independent along both)."""
     bsz, s, d = x.shape
     di, n, r = d_inner(cfg), cfg.ssm_state, dt_rank(cfg)
     dt_ = x.dtype
 
-    xz = x @ params["in_proj"].to(dt_)
+    xz = L.constrain(x @ params["in_proj"].to(dt_), rules, _SEQ_MLP)
     xin, z = xz.split(di, dim=-1)
 
     prev_conv = state["conv"].to(dt_) if state is not None else None
     xc = _causal_conv(xin, params["conv_w"].to(dt_),
                       params["conv_b"].to(dt_), prev_conv)
-    xc = layers.silu(xc)
+    xc = L.constrain(layers.silu(xc), rules, _SEQ_MLP)
 
     proj = xc @ params["x_proj"].to(dt_)
     dt_low, b_in, c_in = proj.split([r, n, n], dim=-1)
@@ -135,14 +150,16 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig,
             xc.contiguous(), dt_full.contiguous(), a, b_in.contiguous(),
             c_in.contiguous(), h0)
     else:
-        if h0 is None:
-            h0 = torch.zeros((bsz, di, n), dtype=torch.float32,
-                             device=x.device)
-        y, h_final = selective_scan(xc, dt_full, a, b_in, c_in, h0)
+        y, h_final = L.local_call(
+            _plain_scan,
+            [(xc, _SEQ_MLP), (dt_full, _SEQ_MLP), (a, (L.MLP, L.STATE)),
+             (b_in, _SEQ_STATE), (c_in, _SEQ_STATE), (h0, _H_AXES)],
+            [_SEQ_MLP, _H_AXES], rules)
     y = y.to(dt_) + xc * params["d_skip"].to(dt_)
 
     out = y * layers.silu(z)
-    out = out @ params["out_proj"].to(dt_)
+    out = L.constrain(out @ params["out_proj"].to(dt_), rules,
+                      (L.BATCH, L.SEQ, L.ACT_EMBED))
 
     if state is not None:
         tail = torch.cat([prev_conv, xin], dim=1)[:, -(cfg.ssm_conv - 1):]

@@ -13,13 +13,23 @@ capacity dispatch.
   ``capacity`` slots an expert, the experts batched over an (E, C, D)
   buffer, and a gate-weighted scatter-add back to the tokens.  Slots past
   an expert's capacity are dropped, as the reference's ``mode="drop"``
-  scatter drops them.
+  scatter drops them: they are written to a dump row past the buffer's
+  end that is sliced off, so every shape is static (the dry run traces
+  this path on fake tensors).
 * Shared experts (deepseek-moe) are one fused dense swiglu of hidden
   ``num_shared_experts * moe_d_ff``, added to the routed output.
 
 ``route`` breaks ties between equal router probabilities toward the lower
 expert id, as ``jax.lax.top_k`` does (a stable descending sort;
 ``torch.topk`` promises no order among ties).
+
+On a mesh (DTensor activations) the routing and the capacity path's
+dispatch and combine, index work on the token slots, run whole on every
+rank (``sharding.logical.local_call`` with replicated arguments): the
+counterpart of the reference's unconstrained dispatch, which it leaves
+to SPMD propagation.  The expert GEMMs run on the sharded buffer,
+expert-parallel, and with ``moe_cap_shard`` the buffer is pinned
+(EXPERT, CAPACITY, ACT_EMBED) as in the reference.
 """
 from __future__ import annotations
 
@@ -76,83 +86,133 @@ def route(params: dict, xt: torch.Tensor, cfg: ModelConfig
     return gate, expert_ids, aux
 
 
-def _swiglu_expert(params: dict, xt: torch.Tensor, i) -> torch.Tensor:
+def _swiglu_expert(params: dict, xt: torch.Tensor, i, rules=None,
+                   cap_ax=None) -> torch.Tensor:
     """Expert ``i``'s swiglu on (..., D) rows (``i`` indexes the stacked
-    expert axis: an int, or a slice for the batched capacity buffer)."""
+    expert axis: an int, or a slice for the batched capacity buffer,
+    whose hidden activations ``rules`` pin)."""
     dt = xt.dtype
     gate_h = xt @ params["wi_gate"][i].to(dt)
     up_h = xt @ params["wi_up"][i].to(dt)
-    return (layers.silu(gate_h) * up_h) @ params["wo"][i].to(dt)
+    h = layers.silu(gate_h) * up_h
+    if rules is not None:
+        h = L.constrain(h, rules, (L.EXPERT, cap_ax, None))
+    return h @ params["wo"][i].to(dt)
 
 
-def _apply_moe_dropless(params: dict, x: torch.Tensor, cfg: ModelConfig
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _combine_weights(router: torch.Tensor, xt: torch.Tensor,
+                     cfg: ModelConfig):
+    """(T, E) gate mass each token sends to each expert, and the aux loss
+    (top-k ids are distinct, so the scatter-add never collides per row)."""
+    gate, expert_ids, aux = route({"router": router}, xt, cfg)
+    w = torch.zeros((xt.shape[0], cfg.num_experts), dtype=xt.dtype,
+                    device=xt.device)
+    w.scatter_add_(1, expert_ids, gate.to(xt.dtype))
+    return w, aux
+
+
+def _apply_moe_dropless(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact dropless MoE: dense per-expert compute, gate-masked combine."""
     b, s, d = x.shape
     t = b * s
     dt = x.dtype
 
-    xt = x.reshape(t, d)
-    gate, expert_ids, aux = route(params, xt, cfg)
+    xt = L.constrain(x.reshape(t, d), rules, (L.BATCH, L.ACT_EMBED))
+    w, aux = L.local_call(
+        lambda r, xs: _combine_weights(r, xs, cfg),
+        [(params["router"], None), (xt, None)], [None, None], rules)
 
-    # combine weights (T, E): gate mass each token sends to each expert
-    # (top-k ids are distinct, so the scatter-add never collides per row)
-    w = torch.zeros((t, cfg.num_experts), dtype=dt, device=x.device)
-    w.scatter_add_(1, expert_ids, gate.to(dt))
-
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y = L.replicated_like(torch.zeros((t, d), dtype=torch.float32,
+                                      device=L.local_device(x)), x)
     for i in range(cfg.num_experts):
         y += _swiglu_expert(params, xt, i).float() * w[:, i, None].float()
 
-    out = y.to(dt).reshape(b, s, d)
+    y = L.constrain(y.to(dt), rules, (L.BATCH, L.ACT_EMBED))
+    out = y.reshape(b, s, d)
     if cfg.num_shared_experts:
-        out = out + layers.apply_ffn(params["shared"], x, "swiglu")
-    return out, aux
+        out = out + layers.apply_ffn(params["shared"], x, "swiglu", rules)
+    return L.constrain(out, rules, (L.BATCH, L.SEQ, L.ACT_EMBED)), aux
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B,S,D), aux_loss)."""
-    if cfg.moe_dropless:
-        return _apply_moe_dropless(params, x, cfg)
-    b, s, d = x.shape
-    t = b * s
+def _dispatch(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
+    """Route the token slots, sort them by expert and clip each expert to
+    its capacity -> (the (E, C, D) buffer, aux loss, and the combine's
+    indices: kept, destination row, token, and gate of each sorted
+    slot).  Static shapes: an over-capacity slot is written to a dump
+    row past the buffer's end, which is sliced off."""
+    t, d = xt.shape
     e, k = cfg.num_experts, cfg.top_k
     c = capacity(t, cfg)
-    dt = x.dtype
-
-    xt = x.reshape(t, d)
-    gate, expert_ids, aux = route(params, xt, cfg)
+    dt = xt.dtype
+    gate, expert_ids, aux = route({"router": router}, xt, cfg)
 
     flat_e = expert_ids.reshape(t * k)
     flat_gate = gate.reshape(t * k).to(dt)
 
-    # --- dispatch: sort token-slots by expert, clip to capacity ------------
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = torch.zeros(e, dtype=flat_e.dtype, device=xt.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     seg_start = torch.cumsum(counts, 0) - counts         # (E,)
-    pos_in_expert = torch.arange(t * k, device=x.device) - seg_start[sorted_e]
+    pos_in_expert = torch.arange(t * k, device=xt.device) - seg_start[sorted_e]
     keep = pos_in_expert < c
     token_idx = sort_idx // k                            # sorted-slot -> token
-    dest = sorted_e * c + pos_in_expert                  # valid where keep
+    dest = torch.where(keep, sorted_e * c + pos_in_expert, e * c)
 
-    buf = torch.zeros((e * c, d), dtype=dt, device=x.device)
-    buf[dest[keep]] = xt[token_idx[keep]]                # over-capacity: dropped
-    buf = buf.reshape(e, c, d)
+    buf = torch.zeros((e * c + 1, d), dtype=dt, device=xt.device)
+    buf[dest] = xt[token_idx]                # over-capacity: the dump row
+    return (buf[:e * c].reshape(e, c, d), aux, keep, dest, token_idx,
+            flat_gate[sort_idx])
 
-    # --- expert FFN (batched swiglu over the expert axis) ------------------
-    out_e = _swiglu_expert(params, buf, slice(None))     # (E, C, D)
 
-    # --- combine: gather back to token slots, weight, scatter-add ----------
+def _combine(out_e: torch.Tensor, keep, dest, token_idx, slot_gate,
+             t: int) -> torch.Tensor:
+    """Gather the experts' rows back to the token slots, weight them by
+    their gates and scatter-add them onto the tokens; dropped slots add
+    zero."""
+    e, c, d = out_e.shape
     gathered = torch.where(keep[:, None],
                            out_e.reshape(e * c, d)[dest.clamp(max=e * c - 1)],
-                           torch.zeros((), dtype=dt, device=x.device))
-    contrib = gathered * flat_gate[sort_idx][:, None]
-    y = torch.zeros((t, d), dtype=dt, device=x.device)
+                           torch.zeros((), dtype=out_e.dtype,
+                                       device=out_e.device))
+    contrib = gathered * slot_gate[:, None]
+    y = torch.zeros((t, d), dtype=out_e.dtype, device=out_e.device)
     y.index_add_(0, token_idx, contrib)
+    return y
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, rules=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B,S,D), aux_loss)."""
+    if cfg.moe_dropless:
+        return _apply_moe_dropless(params, x, cfg, rules)
+    b, s, d = x.shape
+    t = b * s
+    if not cfg.moe_cap_shard:
+        # unconstrained dispatch, as the reference's default (v1) path
+        rules = None
+
+    xt = L.constrain(x.reshape(t, d), rules, (L.BATCH, L.ACT_EMBED))
+    # --- dispatch: sort token-slots by expert, clip to capacity ------------
+    buf, aux, keep, dest, token_idx, slot_gate = L.local_call(
+        lambda r, xs: _dispatch(r, xs, cfg),
+        [(params["router"], None), (xt, None)], [None] * 6, rules)
+    cap_ax = L.CAPACITY if cfg.moe_cap_shard else None
+    buf = L.constrain(buf, rules, (L.EXPERT, cap_ax, L.ACT_EMBED))
+
+    # --- expert FFN (batched swiglu over the expert axis) ------------------
+    out_e = _swiglu_expert(params, buf, slice(None), rules, cap_ax)
+    out_e = L.constrain(out_e, rules, (L.EXPERT, cap_ax, L.ACT_EMBED))
+
+    # --- combine: gather back to token slots, weight, scatter-add ----------
+    y = L.local_call(
+        lambda *a: _combine(*a, t),
+        [(out_e, None), (keep, None), (dest, None), (token_idx, None),
+         (slot_gate, None)], [None], rules)
+    y = L.constrain(y, rules, (L.BATCH, L.ACT_EMBED))
 
     out = y.reshape(b, s, d)
     if cfg.num_shared_experts:
-        out = out + layers.apply_ffn(params["shared"], x, "swiglu")
-    return out, aux
+        out = out + layers.apply_ffn(params["shared"], x, "swiglu", rules)
+    return L.constrain(out, rules, (L.BATCH, L.SEQ, L.ACT_EMBED)), aux

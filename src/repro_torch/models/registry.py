@@ -25,6 +25,7 @@ import torch
 from repro_torch import _device
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import logical as L
 
 _ARCH_MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
@@ -71,44 +72,78 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     return lm.init_cache(cfg, batch, cache_len, device)
 
 
-def forward(params, batch: Dict[str, Any], cfg: ModelConfig
+def forward(params, batch: Dict[str, Any], cfg: ModelConfig, rules=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if is_encdec(cfg):
         return encdec.forward(params, batch["tokens"],
-                              batch["frame_embeds"], cfg)
-    return lm.forward(params, batch["tokens"], cfg,
+                              batch["frame_embeds"], cfg, rules)
+    return lm.forward(params, batch["tokens"], cfg, rules,
                       prefix_embeds=batch.get("prefix_embeds"))
 
 
-def prefill(params, batch: Dict[str, Any], cache, cfg: ModelConfig):
+def prefill(params, batch: Dict[str, Any], cache, cfg: ModelConfig,
+            rules=None):
     """Returns (last-token logits, cache, extras-dict); an enc-dec arch's
     extras hold the encoder ``memory`` that every decode step reads."""
     if is_encdec(cfg):
         logits, cache, memory = encdec.prefill(
-            params, batch["tokens"], batch["frame_embeds"], cache, cfg)
+            params, batch["tokens"], batch["frame_embeds"], cache, cfg,
+            rules)
         return logits, cache, {"memory": memory}
     logits, new_cache = lm.prefill(params, batch["tokens"], cache, cfg,
+                                   rules,
                                    prefix_embeds=batch.get("prefix_embeds"))
     return logits, new_cache, {}
 
 
 def decode_step(params, batch: Dict[str, Any], cache, pos: int,
-                cfg: ModelConfig):
+                cfg: ModelConfig, rules=None):
     if is_encdec(cfg):
         return encdec.decode_step(params, batch["tokens"], batch["memory"],
-                                  cache, pos, cfg)
-    return lm.decode_step(params, batch["tokens"], cache, pos, cfg)
+                                  cache, pos, cfg, rules)
+    return lm.decode_step(params, batch["tokens"], cache, pos, cfg, rules)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
             aux_weight: float = 0.01) -> torch.Tensor:
     """Next-token CE over the last S_text positions (+ MoE aux loss), the
-    log-softmax in float32."""
+    log-softmax in float32.  Logits sharded over the vocab (a DTensor)
+    take the log-sum-exp and the labels' logits shard by shard
+    (``_sharded_nll``)."""
     s_text = labels.shape[1]
     logits = logits[:, -s_text:]
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if L.is_dtensor(logits):
+        nll = _sharded_nll(logits.to(torch.float32), labels)
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return nll.mean() + aux_weight * aux
+
+
+def _sharded_nll(x, labels):
+    """-log softmax(x)[label] for DTensor logits ``x`` (B, S, V), whose
+    vocab may be sharded: the log-sum-exp reduces over the shards, and
+    each rank takes the labels' logits that fall in its shard (zeros for
+    the others) into a partial sum, so that no rank holds the whole
+    vocab's logits or their gradient."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    m = x.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(x - m).sum(-1)) + m[..., 0]
+    mesh = x.device_mesh
+    vocab = [d for d, p in enumerate(x.placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    lab_pl = [Replicate() if d in vocab else p
+              for d, p in enumerate(x.placements)]
+    lab = L.replicated_like(labels, x).redistribute(mesh, lab_pl)
+    lab = lab.to_local().long()
+    local = x.to_local()
+    off, n = L.shard_span(x, 2)
+    held = (lab >= off) & (lab < off + n)
+    picked = torch.gather(local, -1, torch.where(held, lab - off, 0)[
+        ..., None])[..., 0] * held
+    target = L.partial_sum(picked, mesh, [Partial() if d in vocab else p
+                                          for d, p in enumerate(lab_pl)])
+    return lse - target
 
 
 def text_len(cfg: ModelConfig, seq_len: int) -> int:

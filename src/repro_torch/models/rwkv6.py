@@ -88,8 +88,8 @@ def _ddlerp(params: dict, x: torch.Tensor,
     # low-rank data-dependent offsets
     mu_base = params["mu_base"].to(dt)
     base = x + dx * mu_base[0]
-    z = torch.tanh(base @ params["mu_w1"].to(dt))
-    z = z.reshape(*z.shape[:-1], 5, LORA_RANK)
+    z = L.split_dim(torch.tanh(base @ params["mu_w1"].to(dt)), -1,
+                    (5, LORA_RANK))
     offs = torch.einsum("bstr,trd->bstd", z, params["mu_w2"].to(dt))
     return tuple(x + dx * (mu_base[i] + offs[:, :, i]) for i in range(5))
 
@@ -139,11 +139,25 @@ def init_time_state(cfg: ModelConfig, batch: int) -> dict:
     }
 
 
+_HEAD_AXES = (L.BATCH, L.SEQ, L.HEADS, L.HEAD_DIM)
+_WKV_STATE_AXES = (L.BATCH, L.HEADS, None, None)
+
+
+def _plain_scan(rh, kh, vh, wh, u, s0):
+    if s0 is None:
+        b, _, h, dh = rh.shape
+        s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=rh.device)
+    return wkv_scan(rh, kh, vh, wh, u, s0)
+
+
 def apply_time_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                   state: Optional[dict] = None
+                   state: Optional[dict] = None, rules=None
                    ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Sequence mode (``state`` None: a zero state) or streaming (the
-    carried ``state``, updated in place)."""
+    carried ``state``, updated in place).  On a mesh the plain
+    recurrence runs on each rank's batch rows and heads (it is
+    independent along both)."""
     b, s, d = x.shape
     h, dh = num_rwkv_heads(cfg), cfg.rwkv_head_dim
     dt = x.dtype
@@ -158,22 +172,26 @@ def apply_time_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
     g = xg @ params["wg"].to(dt)
     w = _decay(params, xw)                                 # fp32 (B,S,D)
 
-    rh, kh, vh = (t.reshape(b, s, h, dh).float() for t in (r, k, v))
-    wh = w.reshape(b, s, h, dh)
+    rh, kh, vh = (L.split_dim(t, -1, (h, dh)).float() for t in (r, k, v))
+    wh = L.split_dim(w, -1, (h, dh))
+    rh = L.constrain(rh, rules, _HEAD_AXES)
     u = params["u"].float()
     s0 = state["wkv"] if state is not None else None
     if cfg.attn_impl == "flash":
         y, s_final = wkv_ops.wkv6(rh, kh, vh, wh, u, s0)
     else:
-        if s0 is None:
-            s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
-                             device=x.device)
-        y, s_final = wkv_scan(rh, kh, vh, wh, u, s0)
+        y, s_final = L.local_call(
+            _plain_scan,
+            [(rh, _HEAD_AXES), (kh, _HEAD_AXES), (vh, _HEAD_AXES),
+             (wh, _HEAD_AXES), (u, (L.HEADS, L.HEAD_DIM)),
+             (s0, _WKV_STATE_AXES)],
+            [_HEAD_AXES, _WKV_STATE_AXES], rules)
 
     y = _group_norm(y.reshape(b, s, d), params["ln_scale"],
                     params["ln_bias"], h)
     out = y.to(dt) * layers.silu(g)
-    out = out @ params["wo"].to(dt)
+    out = L.constrain(out @ params["wo"].to(dt), rules,
+                      (L.BATCH, L.SEQ, L.ACT_EMBED))
 
     if state is not None:
         state["wkv"].copy_(s_final)
@@ -188,7 +206,7 @@ def init_channel_state(cfg: ModelConfig, batch: int) -> dict:
 
 
 def apply_channel_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                      state: Optional[dict] = None
+                      state: Optional[dict] = None, rules=None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     dt = x.dtype
     prev = state["shift"].to(dt) if state is not None else None
@@ -197,9 +215,10 @@ def apply_channel_mix(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xk = x + dx * params["mu_k"].to(dt)
     xr = x + dx * params["mu_r"].to(dt)
     k = torch.relu(xk @ params["wk"].to(dt)).square()
+    k = L.constrain(k, rules, (L.BATCH, L.SEQ, L.MLP))
     vv = k @ params["wv"].to(dt)
     r = layers.sigmoid(xr @ params["wr"].to(dt))
-    out = r * vv
+    out = L.constrain(r * vv, rules, (L.BATCH, L.SEQ, L.ACT_EMBED))
     if state is not None:
         state["shift"].copy_(x[:, -1:])
     return out, state

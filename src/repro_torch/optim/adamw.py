@@ -12,7 +12,8 @@ The second-moment compression reuses the quant_cast codec: a CUDA state
 launches the kernel once per ``v`` leaf, a CPU state goes through its
 plain version (``kernels.quant_cast.ops``).  Functional API: the state is
 a tree aligned with the params, ``{"m", "v", "step"}``, ``step`` an int32
-0-d tensor.
+0-d tensor.  DTensor params on a mesh get moments placed as they are and
+a replicated ``step``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch._tree import (tree_flatten, tree_flatten_up_to, tree_leaves,
                                tree_map, tree_unflatten)
+from repro_torch.sharding import logical as L
 
 _F32 = torch.float32
 
@@ -55,10 +57,11 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_state(params) -> dict:
-    device = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)
+    first = tree_leaves(params)[0]
+    zeros = lambda p: torch.zeros_like(p, dtype=_F32)
+    step = torch.zeros((), dtype=torch.int32, device=L.local_device(first))
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": L.replicated_like(step, first)}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -86,10 +89,11 @@ def apply_updates(cfg: AdamWConfig, params, grads, state
     b1, b2 = cfg.beta1, cfg.beta2
     step_f = step.to(_F32)
     # 1 - beta ** step, a float32 power of the float32-rounded beta
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=_F32, device=step.device),
-                        step_f)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=_F32, device=step.device),
-                        step_f)
+    dev = L.local_device(step)
+    bc1 = 1 - torch.pow(L.replicated_like(
+        torch.tensor(b1, dtype=_F32, device=dev), step), step_f)
+    bc2 = 1 - torch.pow(L.replicated_like(
+        torch.tensor(b2, dtype=_F32, device=dev), step), step_f)
 
     def upd(p, g, m, v):
         g = g.to(_F32)

@@ -1,2 +1,2 @@
-"""Logical axis names and declarative parameter specs (one device: no mesh
-yet)."""
+"""Logical-axis sharding: axis names, parameter specs, rules tables and
+their placements on a ``DeviceMesh``."""

@@ -13,6 +13,11 @@ Training runs the plain attention and scans only (``attn_impl =
 "reference"``): no kernel of either package has a backward pass, and the
 reference cannot differentiate its ``pallas_call``s.  ``make_train_step``
 refuses any other ``attn_impl`` on every device, before it runs.
+
+With ``rules`` (``sharding.logical.AxisRules``) and a state and batch of
+DTensors on a mesh, the forward pins its activations as the reference's
+does; on a mesh, microbatch ``i`` is every rank's ``i``-th slice of its
+own batch rows (the same rows in all, summed in another order).
 """
 from __future__ import annotations
 
@@ -37,9 +42,9 @@ class TrainConfig:
     aux_weight: float = 0.01
 
 
-def loss_and_metrics(params, batch, cfg: ModelConfig, aux_weight: float
-                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    logits, aux = registry.forward(params, batch, cfg)
+def loss_and_metrics(params, batch, cfg: ModelConfig, aux_weight: float,
+                     rules=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    logits, aux = registry.forward(params, batch, cfg, rules)
     loss = registry.loss_fn(logits, batch["labels"], aux,
                             aux_weight=aux_weight)
     return loss, {"loss": loss, "aux_loss": aux}
@@ -47,15 +52,21 @@ def loss_and_metrics(params, batch, cfg: ModelConfig, aux_weight: float
 
 def _microbatch(batch: Dict[str, Any], n: int, i: int) -> Dict[str, Any]:
     def take(x):
-        b = x.shape[0]
+        loc = x.to_local() if L.is_dtensor(x) else x
+        b = loc.shape[0]
         if b % n:
             raise ValueError(f"a batch of {b} does not split into {n} "
                              f"microbatches")
-        return x.reshape(n, b // n, *x.shape[1:])[i]
+        part = loc.reshape(n, b // n, *loc.shape[1:])[i]
+        if loc is x:
+            return part
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(part, x.device_mesh, x.placements,
+                                  run_check=False)
     return {k: take(v) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, rules=None):
     """Returns train_step(state, batch) -> (state, metrics), where
     state = {"params": ..., "opt": ...}."""
     if cfg.attn_impl != "reference":
@@ -69,7 +80,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         live = [p.detach().requires_grad_() for p in flat_p]
         with torch.enable_grad():
             loss, metrics = loss_and_metrics(tree_unflatten(treedef, live),
-                                             mb, cfg, tcfg.aux_weight)
+                                             mb, cfg, tcfg.aux_weight, rules)
             grads = torch.autograd.grad(loss, live, allow_unused=True,
                                         materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
@@ -79,8 +90,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         flat_p, treedef = tree_flatten(params)
         n = tcfg.microbatches
         if n > 1:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in flat_p]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat_p]
             per_mb = []
             for i in range(n):
                 grads, metrics = grads_of(flat_p, treedef,

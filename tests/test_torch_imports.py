@@ -90,9 +90,17 @@ TRAIN_MODULES = ["repro_torch.optim.adamw", "repro_torch.train.step",
                  "repro_torch.data.pipeline"]
 
 
+# the sharded path and the launch layer
+LAUNCH_MODULES = ["repro_torch.sharding", "repro_torch.launch.mesh",
+                  "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                  "repro_torch.launch.drive_dryrun",
+                  "repro_torch.launch.hillclimb"]
+
+
 @pytest.mark.parametrize("module",
                          STREAM_MODULES + ML_MODULES + DURABLE_MODULES
-                         + FRONTDOOR_MODULES + TRAIN_MODULES)
+                         + FRONTDOOR_MODULES + TRAIN_MODULES
+                         + LAUNCH_MODULES)
 def test_streaming_modules_load_no_jax(module):
     """Each module of the streaming, ML and durability slices, imported
     alone in a fresh interpreter, loads neither jax nor the reference
