@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch._tree import tree_leaves
+from repro_torch.obs import trace
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -255,12 +256,21 @@ class KVTable:
 
     def range(self, start: Tuple[str, str, str], end: Tuple[str, str, str]
               ) -> List[Tuple[Tuple[str, str, str], Any]]:
-        out = []
-        for k, v in zip(self.keys, self.values):
-            if (k[0] >= start[0] and k[0] <= end[0]
-                    and (not start[1] or k[1] >= start[1])
-                    and (not end[1] or k[1] <= end[1])):
-                out.append((k, v))
+        """Rows whose key lies within ``start`` and ``end``; traced as
+        ``kv/range`` with the keys ``examined`` against the bounds and the
+        ``rows`` returned.  ``examined`` is the number of keys the search
+        compares: this scan compares every key once, with no early exit,
+        so it is the table's size.  A search that compares fewer keys
+        counts the ones it does compare; a constant here would read as
+        the scan's cost whatever the scan did."""
+        with trace.span("kv/range") as sp:
+            out = []
+            for k, v in zip(self.keys, self.values):
+                if (k[0] >= start[0] and k[0] <= end[0]
+                        and (not start[1] or k[1] >= start[1])
+                        and (not end[1] or k[1] <= end[1])):
+                    out.append((k, v))
+            sp.set(examined=len(self.keys), rows=len(out))
         return out
 
     def put(self, key: Tuple[str, str, str], value: Any) -> None:

@@ -113,20 +113,24 @@ class PlanCache:
         self.evictions = 0
         self.stale_evictions = 0
 
-    def get(self, sig: Signature) -> Optional[_CacheEntry]:
+    def lookup(self, sig: Signature
+               ) -> Tuple[Optional[_CacheEntry], str]:
+        """The entry for ``sig`` (or None) and how the lookup went:
+        ``hit``, ``miss`` (no entry) or ``stale`` (an entry dropped for
+        its age or for a newer Monitor measurement)."""
         key = sig.key()
         with self._lock:
             item = self._entries.get(key)
             if item is None:
                 self.misses += 1
-                return None
+                return None, "miss"
             _, entry = item
             if (time.monotonic() - entry.inserted_at
                     > self.max_age_seconds):
                 del self._entries[key]
                 self.stale_evictions += 1
                 self.misses += 1
-                return None
+                return None, "stale"
             version = self.monitor.signature_version(sig)
             if version != entry.monitor_version:
                 # new measurements landed; keep the entry only if it is
@@ -136,11 +140,11 @@ class PlanCache:
                     del self._entries[key]
                     self.stale_evictions += 1
                     self.misses += 1
-                    return None
+                    return None, "stale"
                 entry.monitor_version = version
             self._entries.move_to_end(key)
             self.hits += 1
-            return entry
+            return entry, "hit"
 
     def put(self, sig: Signature, plan: QueryExecutionPlan) -> None:
         key = sig.key()
@@ -431,7 +435,7 @@ class Planner:
         mode = "training" if is_training_mode else "lean"
         t_query = time.perf_counter()
         with trace.span("planner/query", mode=mode) as sp:
-            response = self._process_query(userinput, is_training_mode)
+            response = self._process_query(userinput, is_training_mode, sp)
             sp.set(qep=response.qep_id,
                    cache_hit=response.plan_cache_hit)
         metrics.histogram("repro_query_seconds",
@@ -450,7 +454,8 @@ class Planner:
         return response
 
     def _process_query(self, userinput: str,
-                       is_training_mode: bool = False) -> Response:
+                       is_training_mode: bool = False,
+                       sp: Any = trace.NOOP) -> Response:
         t0 = time.perf_counter()
         root = bql.parse(userinput)
         parse_s = time.perf_counter() - t0
@@ -470,8 +475,11 @@ class Planner:
         # lean mode: the signature-keyed plan cache skips enumeration
         if not is_training_mode:
             t1 = time.perf_counter()
-            cached = self.plan_cache.get(sig)
+            cached, outcome = self.plan_cache.lookup(sig)
             cache_s = time.perf_counter() - t1
+            # the lookup's own outcome: a hit whose plan no longer fits
+            # is still a hit here, and cache_hit says False
+            sp.set(cache=outcome)
             if cached is not None:
                 plan = QueryExecutionPlan(
                     root=root, node_engines=dict(cached.node_engines),

@@ -6,21 +6,33 @@ commit lanes) so parent links survive thread hops.
 Gated by ``REPRO_TRACE`` (default off).  When disabled, ``span()``
 returns a shared no-op context manager and ``bind()`` returns its
 argument unchanged — the instrumented hot paths pay one module-global
-check plus a kwargs dict, nothing else (the ``stream/trace_overhead``
-bench row keeps this honest).
+check plus a kwargs dict, nothing else, and read no clock
+(``tests/test_torch_obs.py::test_off_path_returns_noop_and_reads_no_clock``
+keeps this honest).
 
 Span names are ``layer/stage`` (``planner/query``, ``executor/node``,
-``committer/commit``, ``stream/tick``, ``compile/execute`` ...); the
-layer prefix becomes the Chrome-trace category, so Perfetto can filter
-by subsystem.  ``trace_id`` is inherited from the enclosing span (pass
-one explicitly at a root — e.g. the tick id) and parent links are span
-ids, valid across threads.
+``kv/range``, ``committer/commit``, ``stream/tick``, ``compile/execute``
+...); the layer prefix becomes the Chrome-trace category, so Perfetto
+can filter by subsystem.  ``trace_id`` is inherited from the enclosing
+span (pass one explicitly at a root — e.g. the tick id) and parent links
+are span ids, valid across threads.  ``kv/range`` is the text island's
+key-range scan (``KVTable.range``) with ``examined`` (the keys the search
+compared against the bounds: every key, for a full scan) and ``rows``
+(rows returned); ``planner/query`` carries ``cache`` (``hit``, ``miss``
+or ``stale``) where the plan cache was consulted.
 
-Exporters: ``chrome_trace()`` (Perfetto-loadable trace-event JSON with
-flow events marking cross-thread parent links) and ``flamegraph()``
-(text summary aggregated by parent-chain path).  Spans slower than
-``REPRO_SLOW_OP_MS`` additionally land in the slow-op ring with their
-attrs (``slow_ops()``).
+Clocks: a span's ``start`` and ``duration`` come from the perf counter
+(``_clock``); its ``start_ns`` is ``time.time_ns()`` read on entry, the
+Unix-epoch nanoseconds ``torch.profiler`` stamps CUDA activity with, so
+a span ``[start_ns, start_ns + duration * 1e9]`` lies on the device
+trace's timeline.
+
+Exporters: ``chrome_trace()`` (Perfetto-loadable trace-event JSON, ``ts``
+in epoch microseconds from ``start_ns`` so it loads beside a
+``torch.profiler`` export, with flow events marking cross-thread parent
+links) and ``flamegraph()`` (text summary aggregated by parent-chain
+path).  Spans slower than ``REPRO_SLOW_OP_MS`` additionally land in the
+slow-op ring with their attrs (``slow_ops()``).
 """
 from __future__ import annotations
 
@@ -111,6 +123,7 @@ class SpanRecord:
     parent_id: Optional[int]
     start: float                    # perf-counter seconds
     duration: float                 # seconds
+    start_ns: int                   # time.time_ns() at entry (epoch ns)
     thread_id: int
     thread_name: str
     attrs: Dict[str, Any] = field(default_factory=dict)
@@ -136,7 +149,7 @@ NOOP = _NoopSpan()
 class Span:
     """An open span; records itself into the ring on exit."""
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
-                 "_t0", "_token")
+                 "_t0", "_t0_ns", "_token")
 
     def __init__(self, name: str, trace_id: Optional[str],
                  attrs: Dict[str, Any]) -> None:
@@ -146,6 +159,7 @@ class Span:
         self.span_id = 0
         self.parent_id: Optional[int] = None
         self._t0 = 0.0
+        self._t0_ns = 0
         self._token = None
 
     def set(self, **attrs: Any) -> None:
@@ -161,6 +175,7 @@ class Span:
             self.trace_id = f"t{next(_TRACE_IDS)}"
         self.span_id = next(_SPAN_IDS)
         self._token = _CURRENT.set(self)
+        self._t0_ns = time.time_ns()
         self._t0 = _clock()
         return self
 
@@ -173,8 +188,8 @@ class Span:
         rec = SpanRecord(
             name=self.name, trace_id=self.trace_id, span_id=self.span_id,
             parent_id=self.parent_id, start=self._t0, duration=duration,
-            thread_id=thread.ident or 0, thread_name=thread.name,
-            attrs=dict(self.attrs))
+            start_ns=self._t0_ns, thread_id=thread.ident or 0,
+            thread_name=thread.name, attrs=dict(self.attrs))
         with _LOCK:
             _SPANS.append(rec)
             if duration * 1e3 >= _SLOW_MS:
@@ -247,7 +262,9 @@ def chrome_trace(records: Optional[List[SpanRecord]] = None
     Perfetto and chrome://tracing load).  Spans become complete ("X")
     events on their real thread; a child whose parent ran on another
     thread additionally gets a flow arrow ("s" on the parent thread ->
-    "f" on the child's) so cross-thread parent links are visible."""
+    "f" on the child's) so cross-thread parent links are visible.
+    ``ts`` is ``start_ns`` in microseconds, the epoch time base of a
+    ``torch.profiler`` export."""
     records = spans() if records is None else list(records)
     pid = os.getpid()
     by_id = {r.span_id: r for r in records}
@@ -255,7 +272,7 @@ def chrome_trace(records: Optional[List[SpanRecord]] = None
     thread_names: Dict[int, str] = {}
     for r in records:
         thread_names.setdefault(r.thread_id, r.thread_name)
-        ts = int(r.start * 1e6)
+        ts = r.start_ns // 1000
         events.append({
             "name": r.name, "cat": r.name.split("/", 1)[0], "ph": "X",
             "ts": ts, "dur": max(1, int(r.duration * 1e6)),
