@@ -13,21 +13,18 @@ from portbench.core.manifest import load_module
 
 SPAN_METRICS = {"kv_range_ms.analyst", "kv_range_examined.analyst",
                 "plan_miss_pct.analyst"}
-NOTES = 512                        # the rehearsal's num_notes: one key each
 
-# run.py in this process, then what its window's spans add up to, as the
-# last line
+# run.py in this process, then each of its window's scans as an
+# (examined, rows) pair, as the last line
 _SUMMARY = """
 import json, sys
 sys.path[:0] = [{root!r}, {src!r}]
 from portbench import run
 rc = run.main({argv!r})
 from repro_torch.obs import trace
-scans = [s.attrs for s in trace.spans() if s.name == "kv/range"]
-print(json.dumps({{"rc": rc, "scans": len(scans),
-                  "per_scan": sorted({{a["examined"] for a in scans}}),
-                  "examined": sum(a["examined"] for a in scans),
-                  "rows": sum(a["rows"] for a in scans)}}))
+scans = [(s.attrs.get("examined"), s.attrs.get("rows"))
+         for s in trace.spans() if s.name == "kv/range"]
+print(json.dumps({{"rc": rc, "scans": scans}}))
 """
 
 
@@ -63,7 +60,9 @@ def test_untraced_rehearsal_reports_end_to_end_only():
     assert set(result["metrics"]) == {"query_p95_ms", "setup_s"}
 
 
-def test_examined_per_row_is_the_table_over_the_mean_rows():
+def test_examined_per_row_is_the_spans_examined_over_their_rows():
+    """The reader is the window's own sums, whatever search made them:
+    nothing here names the table's size as what a scan compares."""
     argv = ["--workload", "icu-analyst", "--seed", str(2 ** 31 + 107),
             "--seconds", "1.0", "--rehearsal", "--trace", "1"]
     code = _SUMMARY.format(root=str(ROOT), src=str(ROOT / "src"),
@@ -73,12 +72,18 @@ def test_examined_per_row_is_the_table_over_the_mean_rows():
     assert proc.returncode == 0, proc.stderr[-2000:]
     *_, line, summary = proc.stdout.strip().splitlines()
     result, spans = json.loads(line), json.loads(summary)
-    assert spans["rc"] == 0 and spans["scans"] > 0
-    assert spans["per_scan"] == [NOTES]
-    assert spans["examined"] == NOTES * spans["scans"]
-    mean_rows = spans["rows"] / spans["scans"]
+    scans = spans["scans"]
+    assert spans["rc"] == 0 and len(scans) > 0
+    assert result["correct"] is True
+    for examined, rows in scans:
+        assert type(examined) is int and examined >= 0
+        # the traffic asks for keys r_a .. r_b with b - a in 0..63, all
+        # present, so any correct search returns 1 to 64 rows
+        assert type(rows) is int and 1 <= rows <= 64
+    examined = sum(e for e, _ in scans)
+    rows = sum(r for _, r in scans)
     got = result["metrics"]["kv_range_examined.analyst"]["value"]
-    assert got == pytest.approx(NOTES / mean_rows, rel=1e-12)
+    assert got == pytest.approx(examined / rows, rel=1e-12)
 
 
 def _span(name, start_ns, ms, **attrs):
@@ -119,3 +124,19 @@ def test_span_readers_read_nothing_without_their_spans(metric):
     plain = [_span("planner/query", 1, 1.0), _span("executor/node", 1, 1.0)]
     ctx = SimpleNamespace(dtrace=None, spans=plain)
     assert reader.read(ctx, {"layer": {"queries": 2}}) is None
+
+
+@pytest.mark.parametrize("scans, want", [
+    # a bisection's counts; a span without ``examined`` is skipped
+    pytest.param([(19, 3), (21, 5), (None, 4)], 40 / 8, id="bisection"),
+    pytest.param([(512, 2), (512, 6)], 1024 / 8, id="full_scan"),
+])
+def test_examined_reader_is_the_sums_of_the_spans(scans, want):
+    reader = load_module(BENCH / "metrics" / "kv_range_examined.analyst.py",
+                         "reader")
+    spans = [_span("kv/range", 1, 1.0, rows=rows,
+                   **({} if examined is None else {"examined": examined}))
+             for examined, rows in scans]
+    spans.append(_span("planner/query", 1, 1.0))
+    ctx = SimpleNamespace(dtrace=None, spans=spans)
+    assert reader.read(ctx, {"layer": {"queries": 2}}) == want
